@@ -13,6 +13,17 @@ Phases (one line each; any failure raises and exits non-zero):
      RaytraceRenderer.render_many on the kernels: kernel vs plain renderer
      over 4 frames, then the timed run, whose kernel launch counts must be
      non-zero
+  7. the cluster kernel (K3) vs its plain version on the dragon's sweeps of
+     frame 3 at 240x270 pixels: every sweep of the frame (the fine set's
+     primary rays, the shadow set's light-major any-hit shadow rays, the
+     LOD set's bounce rays), then the same primary rays on the full
+     598k-triangle set; hits, winners and t bit-equal
+  8. the cluster goldens (cluster_forced, fine_forced) on the card (48x28
+     cells, 4 frames, kernels)
+  9. the dragon at 240x135 cells, ss=1: kernel vs plain renderer over 4
+     frames, then the timed render_many, whose cluster and post kernel
+     launch counts must be non-zero, then K3's own time on the primary
+     sweep against its plain version
 Then a JSON line of per-kernel results, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -21,6 +32,7 @@ Imports nothing of JAX: the JAX package is not needed on the card.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -32,11 +44,14 @@ import torch
 
 from yetanotherconsolegameengine_tpu_torch.config import DEFAULT_CONFIG
 from yetanotherconsolegameengine_tpu_torch.core.camera import ray_params
-from yetanotherconsolegameengine_tpu_torch.ops import kernels, post_kernel
+from yetanotherconsolegameengine_tpu_torch.ops import (cluster_kernel,
+                                                       kernels, post_kernel)
 from yetanotherconsolegameengine_tpu_torch.ops import trace_kernel
 from yetanotherconsolegameengine_tpu_torch.render.renderer import (
-    RaytraceRenderer)
+    RaytraceRenderer, trace_mesh_planes)
 from yetanotherconsolegameengine_tpu_torch.scene.builders import SCENE_BUILDERS
+from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import (
+    FORCED_SCENE_BUILDERS)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRACE_SCENES = ("cornell", "glass", "mirror_spheres")
@@ -44,6 +59,8 @@ FB_W, FB_H = 160, 90            # the headline frame: 160x180 traced pixels
 HI_W, HI_H = FB_W, FB_H * 2
 TRACE_FRAME = 3
 TIMED_FRAMES = 200
+DRAGON_W, DRAGON_H = 240, 135   # the mesh frame: 240x270 traced pixels
+DRAGON_FRAMES = 20
 
 
 def trace_contract(got: np.ndarray, ref: np.ndarray) -> dict:
@@ -134,6 +151,43 @@ def post_inputs(packed, dev, cfg=DEFAULT_CONFIG):
     reset = torch.zeros((), dtype=torch.bool, device=dev)
     ae = torch.full((), 0.8, dtype=torch.float32, device=dev)
     return cur, prev, hist, valid, reset, ae
+
+
+def sweep_contract(got, ref) -> dict:
+    """Hold K3's (t, winner, steps) to its plain version: equal hit masks,
+    winners and entries visited; t bit-equal (else within 1e-6 relative)."""
+    t, win, steps = (x.cpu().numpy() for x in got)
+    rt, rwin, rsteps = (x.cpu().numpy() for x in ref)
+    np.testing.assert_array_equal(win, rwin, err_msg="winners")
+    np.testing.assert_array_equal(steps, rsteps, err_msg="entries visited")
+    hit = rwin >= 0
+    rel = np.abs(t[hit] - rt[hit]) / np.maximum(np.abs(rt[hit]), 1e-30)
+    assert rel.size == 0 or rel.max() <= 1e-6, f"t rel err {rel.max()}"
+    return {"rays": int(win.size), "hits": int(hit.sum()),
+            "t_bit_equal": bool(np.array_equal(t, rt)),
+            "t_rel": float(rel.max()) if rel.size else 0.0,
+            "t_abs": float(np.abs(t[hit] - rt[hit]).max()) if rel.size
+            else 0.0,
+            "entries": int(steps.sum())}
+
+
+def record_sweeps(fn):
+    """Run ``fn`` and return [(K3 arguments, K3 result), ...] of every
+    cluster sweep it launched."""
+    calls = []
+    real = cluster_kernel.trace_tiles
+
+    def spy(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    cluster_kernel.trace_tiles = spy
+    try:
+        fn()
+    finally:
+        cluster_kernel.trace_tiles = real
+    return calls
 
 
 def main() -> int:
@@ -243,8 +297,8 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    for k, n in launches.items():
-        assert n > 0, f"kernel {k} was not launched by the main path"
+    for k in ("trace", "post"):
+        assert launches[k] > 0, f"kernel {k} was not launched by the main path"
     ms = start.elapsed_time(stop) / TIMED_FRAMES
     rays = int(out.rays_traced)
     fg = _np(grids[0])
@@ -270,6 +324,104 @@ def main() -> int:
           f"{t_k2:.4f} ms vs plain {t_k2p:.3f} ms; post kernel {t_k1:.4f} ms "
           f"vs plain {t_k1p:.3f} ms", flush=True)
 
+    # ---- 7. the cluster kernel vs plain on the dragon's sweeps -----------
+    t0 = time.perf_counter()
+    dragon = SCENE_BUILDERS["dragon"]().to(dev)
+    build_s = time.perf_counter() - t0
+    dw, dh = DRAGON_W, DRAGON_H * 2
+    d_params = ray_params(dragon.default_pose, dw, dh, TRACE_FRAME)[None]
+
+    def dragon_frame(c):
+        return trace_mesh_planes(dragon, d_params[0], TRACE_FRAME, dw, dh, c,
+                                 "kernel")
+
+    sets = {id(getattr(dragon, k).gmat): k.replace("mesh_clusters", "")
+            .lstrip("_") or "full"
+            for k in ("mesh_clusters", "mesh_clusters_fine",
+                      "mesh_clusters_lod", "mesh_clusters_shadow")}
+    calls = record_sweeps(lambda: dragon_frame(cfg))
+    full = record_sweeps(lambda: dragon_frame(
+        dataclasses.replace(cfg, primary_mesh_lod=False)))[:1]
+    primary_args = calls[0][0]
+    assert sets[id(primary_args[3])] == "fine", "frame's first sweep"
+    assert sets[id(full[0][0][3])] == "full"
+    sweep_err = []
+    for i, (args, got) in enumerate(calls + full):
+        ref = cluster_kernel.trace_tiles_plain(*args)
+        res = sweep_contract(got, ref)
+        sweep_err.append(dict(
+            sweep=i, set=sets[id(args[3])], kc=int(args[3].shape[2]),
+            clusters=int(args[3].shape[0]), any_hit=bool(args[5]), **res))
+    assert any(s["any_hit"] for s in sweep_err), "no any-hit shadow sweep"
+    k3_err = max(s["t_abs"] for s in sweep_err)
+    print(f"phase 7 cluster kernel vs plain on the dragon at {dw}x{dh}, "
+          f"frame {TRACE_FRAME} (scene build {build_s:.2f} s): "
+          f"{json.dumps(sweep_err)}", flush=True)
+
+    # ---- 8. cluster goldens on the card ----------------------------------
+    cluster_golden_err = {}
+    before = kernels.LAUNCHES["clusters"]
+    for name, build in FORCED_SCENE_BUILDERS.items():
+        r = RaytraceRenderer(build(), 48, 28, device=dev)
+        for _ in range(4):
+            out = r.render()
+        e = max(np.abs(_np(out.top_rgb) - goldens[f"{name}_top"]).max(),
+                np.abs(_np(out.bot_rgb) - goldens[f"{name}_bot"]).max())
+        assert e <= 2e-3, f"{name}: golden error {e}"
+        cluster_golden_err[name] = float(e)
+    assert kernels.LAUNCHES["clusters"] > before, "goldens without K3"
+    print(f"phase 8 cluster goldens on the card (48x28, 4 frames, kernels): "
+          f"{json.dumps(cluster_golden_err)}", flush=True)
+
+    # ---- 9. the dragon at full size --------------------------------------
+    dk = RaytraceRenderer(dragon, DRAGON_W, DRAGON_H, device=dev,
+                          impl="kernel")
+    dp = RaytraceRenderer(dragon, DRAGON_W, DRAGON_H, device=dev,
+                          impl="plain")
+    gk, ok_ = dk.render_many(4)
+    gp, op_ = dp.render_many(4)
+    d_err = max(np.abs(_np(ok_.top_rgb) - _np(op_.top_rgb)).max(),
+                np.abs(_np(ok_.bot_rgb) - _np(op_.bot_rgb)).max())
+    d_flips = float(np.mean([(_np(a) != _np(b)).mean()
+                             for a, b in zip(gk, gp)]))
+    assert d_err <= 2e-3 and d_flips < 0.005, (d_err, d_flips)
+    assert int(ok_.rays_traced) == int(op_.rays_traced), \
+        (int(ok_.rays_traced), int(op_.rays_traced))
+    print(f"phase 9a {card} dragon kernel vs plain renderer at "
+          f"{DRAGON_W}x{DRAGON_H}, 4 frames: max rgb err {d_err:.3g}, ANSI "
+          f"flips {d_flips:.4%}, rays_traced {int(ok_.rays_traced)}",
+          flush=True)
+
+    dk.render_many(2)                       # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    start.record()
+    grids, out = dk.render_many(DRAGON_FRAMES)
+    stop.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d_launches = dict(kernels.LAUNCHES)
+    for k in ("clusters", "post"):
+        assert d_launches[k] > 0, f"kernel {k} was not launched by the dragon"
+    d_ms = start.elapsed_time(stop) / DRAGON_FRAMES
+    d_rays = int(out.rays_traced)
+    fg = _np(grids[0])
+    assert fg.shape == (DRAGON_FRAMES, DRAGON_H, DRAGON_W) and fg.min() >= 16
+    assert np.isfinite(_np(out.top_rgb)).all()
+    print(f"phase 9b {card} dragon {DRAGON_W}x{DRAGON_H} ss=1 render_many("
+          f"{DRAGON_FRAMES}): {d_ms:.4f} ms/frame (device events), "
+          f"{1000.0 / d_ms:.2f} fps, {d_rays} rays/frame (last frame), "
+          f"{d_rays / d_ms / 1e3:.3f} Mray/s; host wall {wall:.3f} s; "
+          f"launches {d_launches}", flush=True)
+
+    t_k3 = cuda_ms(lambda: cluster_kernel.trace_tiles(*primary_args), 20)
+    t_k3p = cuda_ms(lambda: cluster_kernel.trace_tiles_plain(*primary_args),
+                    3, 1)
+    print(f"phase 9c {card} cluster kernel on the dragon's primary sweep "
+          f"({primary_args[1].shape[0]} tiles, fine set): {t_k3:.4f} ms vs "
+          f"plain {t_k3p:.3f} ms", flush=True)
+
     print(json.dumps({"kernels": [
         {"name": "trace", "route": "cuda",
          "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
@@ -285,6 +437,12 @@ def main() -> int:
          "launches": launches["post"],
          "max_abs_err": max(e["rgb"] for e in post_err.values()),
          "ms": t_k1, "plain_ms": t_k1p},
+        {"name": "clusters", "route": "cuda",
+         "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
+                   "cluster_kernel.cu",
+         "replaces": "yetanotherconsolegameengine_tpu/ops/mesh_clusters.py:557",
+         "launches": d_launches["clusters"], "max_abs_err": k3_err,
+         "ms": t_k3, "plain_ms": t_k3p},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

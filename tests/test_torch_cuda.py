@@ -10,14 +10,21 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import post_contract, trace_contract
+from chip_smoke import (post_contract, record_sweeps, sweep_contract,
+                        trace_contract)
 from yetanotherconsolegameengine_tpu_torch.config import DEFAULT_CONFIG
 from yetanotherconsolegameengine_tpu_torch.core.camera import ray_params
-from yetanotherconsolegameengine_tpu_torch.ops import (kernels, post_kernel,
+from yetanotherconsolegameengine_tpu_torch.ops import (cluster_kernel, kernels,
+                                                       mesh_clusters,
+                                                       post_kernel,
                                                        trace_kernel)
 from yetanotherconsolegameengine_tpu_torch.render.renderer import (
     RaytraceRenderer)
 from yetanotherconsolegameengine_tpu_torch.scene.builders import SCENE_BUILDERS
+from yetanotherconsolegameengine_tpu_torch.scene.mesh_loader import (
+    make_icosphere)
+from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import (
+    FORCED_SCENE_BUILDERS)
 
 # The suite runs several xdist workers beside JAX's own thread pools;
 # torch's per-process intra-op pool would oversubscribe the cores.
@@ -97,3 +104,69 @@ def test_kernel_rejects_bad_inputs(dev):
             packed, params.contiguous(),
             torch.ones(1, dtype=torch.int32, device=dev), 1, W, H,
             DEFAULT_CONFIG)
+
+
+def _cluster_case(kc, dev, n=5000):
+    """A sphere and a small one beside it, and rays half aimed at them."""
+    tris = np.concatenate([make_icosphere(4) * 1.3, make_icosphere(2) * 0.4
+                           + np.float32([0.9, 0.9, 0.0])])
+    mats = (np.arange(len(tris)) % 5).astype(np.int32)
+    mc = mesh_clusters.build_clusters(tris[:, 0], tris[:, 1], tris[:, 2],
+                                      mats, kc=kc).to(dev)
+    rng = np.random.RandomState(kc)
+    o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    o[: n // 2] = (rng.uniform(-2.5, 2.5, (n // 2, 3)) * np.float32([1, 1, 0])
+                   + np.float32([0, 0, 3.5]))
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[: n // 2] = -o[: n // 2] + rng.normal(scale=0.3, size=(n // 2, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return mc, torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+
+@pytest.mark.parametrize("kc", [256, 512])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cluster_kernel_matches_plain(dev, kc, any_hit):
+    mc, o, d = _cluster_case(kc, dev)
+    before = kernels.LAUNCHES["clusters"]
+    kw = dict(any_hit=any_hit, stats=True)
+    calls = record_sweeps(lambda: mesh_clusters.intersect_clusters(
+        mc, o, d, 1e-3, 3e38, impl="kernel", **kw))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["clusters"] == before + 1
+    (args, got), = calls
+    res = sweep_contract(got, cluster_kernel.trace_tiles_plain(*args))
+    assert res["hits"] > 500 and res["t_bit_equal"]
+    hk, (sk, _) = mesh_clusters.intersect_clusters(mc, o, d, 1e-3, 3e38,
+                                                   impl="kernel", **kw)
+    hp, (sp, _) = mesh_clusters.intersect_clusters(mc, o, d, 1e-3, 3e38,
+                                                   impl="plain", **kw)
+    for k in ("hit", "t", "mat", "n", "u", "v"):
+        assert torch.equal(getattr(hk, k), getattr(hp, k)), k
+    assert torch.equal(sk, sp)
+
+
+def test_cluster_kernel_rejects_bad_inputs(dev):
+    mc, o, d = _cluster_case(256, dev, n=512)
+    (args, _), = record_sweeps(lambda: mesh_clusters.intersect_clusters(
+        mc, o, d, 1e-3, 3e38, impl="kernel"))
+    bad = list(args)
+    bad[3] = args[3].double()
+    with pytest.raises(TypeError):
+        cluster_kernel.trace_tiles(*bad)
+    bad[3] = args[3].cpu()
+    with pytest.raises(ValueError):
+        cluster_kernel.trace_tiles(*bad)
+
+
+@pytest.mark.parametrize("name", sorted(FORCED_SCENE_BUILDERS))
+def test_renderer_kernels_match_cluster_goldens(dev, name):
+    goldens = np.load("tests/goldens.npz")
+    before = kernels.LAUNCHES["clusters"]
+    r = RaytraceRenderer(FORCED_SCENE_BUILDERS[name](), 48, 28, device=dev)
+    for _ in range(4):
+        out = r.render()
+    assert kernels.LAUNCHES["clusters"] > before
+    np.testing.assert_allclose(out.top_rgb.cpu().numpy(),
+                               goldens[f"{name}_top"], atol=2e-3)
+    np.testing.assert_allclose(out.bot_rgb.cpu().numpy(),
+                               goldens[f"{name}_bot"], atol=2e-3)

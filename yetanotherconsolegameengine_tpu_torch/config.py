@@ -1,10 +1,10 @@
 """Render-quality knobs of the frame.
 
 The fields of ``yetanotherconsolegameengine_tpu/config.py::RenderConfig``
-that the ported slice reads, with the same names and defaults
-(tests/test_torch_core.py holds the defaults equal). The port keeps its
-own copy so that a process on the card imports nothing of the JAX package;
-the mesh-routing knobs of the JAX config join when meshes are ported.
+that the port reads, with the same names and defaults
+(tests/test_torch_core.py holds the defaults equal), the mesh-routing knobs
+of the cluster-mesh path included. The port keeps its own copy so that a
+process on the card imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -36,6 +36,23 @@ class RenderConfig:
 
     # Oren–Nayar roughness
     diffuse_sigma_deg: float = 25.0
+
+    # Mesh routing (cluster meshes only). Secondary rays (shadows,
+    # bounces) trace the scene's LOD proxy set and primary rays its fine
+    # proxy set when the scene ships them (ops/intersect.py).
+    secondary_mesh_lod: bool = True
+    primary_mesh_lod: bool = True
+    # Ray binning before the cluster sweep (ops/mesh_clusters.py presort)
+    # for primary and shadow populations; bounce rounds always bin.
+    presort_primary: bool = True
+    presort_shadow: bool = True
+    # Shadow lanes laid out light-major ([light0: all rays][light1: ...])
+    # and swept unsorted, on scenes with cluster meshes and two or more
+    # lights.
+    lmajor_shadow: bool = True
+    # Primary lanes in 16x16 pixel-block order (render/renderer.py), which
+    # turns presort_primary off for that sweep.
+    block_order_primary: bool = True
 
     # Tone mapping
     tone_exposure: float = 1.0

@@ -1,0 +1,128 @@
+"""The cluster-sweep kernel's wrapper and its plain version (K3).
+
+Port of ``yetanotherconsolegameengine_tpu/ops/mesh_clusters.py``
+``_trace_kernel`` / ``_run_kernel``. Given per-tile candidate lists
+(cluster ids in near-to-far order of their entry distance), the cluster
+blocks and the binned rays, return per ray the winning triangle and its t,
+and per tile the number of list entries visited. The CUDA source is
+``csrc/cluster_kernel.cu``; its header comment states the arithmetic and
+the winner rule, which ``trace_tiles_plain`` follows operation by operation.
+
+Inputs (all on one device):
+  lens    (n_tiles,) i32        list lengths
+  ids     (n_tiles, C) i32      cluster ids, candidates first
+  entry_t (n_tiles, C) f32      their entry distances, ascending
+  gmat    (C, 12, kc) f32       Woop blocks (ops/mesh_clusters.py)
+  rays    (n_tiles * 256, 8) f32  o, d, tmin, tinit (-inf: not taking part)
+Outputs: t (P,) f32 (3e38 without a hit), win (P,) i32 flat triangle id
+cluster * kc + k (-1 without a hit), steps (n_tiles,) i32.
+
+``trace_tiles`` launches the kernel for CUDA tensors and runs
+``trace_tiles_plain`` for CPU tensors, where no kernel exists.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+
+TILE = 256         # rays per tile = threads per block in the kernel
+NO_HIT_T = 3.0e38
+
+
+def key_of(t: torch.Tensor, qmask: int) -> torch.Tensor:
+    """The winner key: t's bits with the low ``qmask`` bits cleared."""
+    if qmask == 0:
+        return t
+    return (t.view(torch.int32) & ~qmask).view(torch.float32)
+
+
+def trace_tiles_plain(lens, ids, entry_t, gmat, rays, any_hit: bool,
+                      qmask: int):
+    """The kernel's computation in PyTorch: list position by list position,
+    every tile's entry block against every ray of the tile at once, with
+    the kernel's exit vote before each entry (it decides which hit any-hit
+    mode returns). Syncs with the host once per list position to stop when
+    no tile is left."""
+    n_tiles, C = ids.shape
+    kc = gmat.shape[2]
+    dev = rays.device
+    r = rays.view(n_tiles, TILE, 8)
+    ox, oy, oz = (r[..., i, None] for i in range(3))
+    dx, dy, dz = (r[..., i, None] for i in range(3, 6))
+    tmin = r[..., 6, None]
+    best_key = key_of(r[..., 7].contiguous(), qmask)
+    best_t = torch.full((n_tiles, TILE), NO_HIT_T, device=dev)
+    best_id = torch.full((n_tiles, TILE), -1, dtype=torch.int32, device=dev)
+    steps = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    alive = torch.ones(n_tiles, dtype=torch.bool, device=dev)
+    inf = torch.tensor(float("inf"), device=dev)
+    k_iota = torch.arange(kc, device=dev)
+    for e in range(C):
+        bound = (torch.where(best_id >= 0, -inf, best_key) if any_hit
+                 else best_key)
+        want = key_of(entry_t[:, e].contiguous(), qmask)[:, None] <= bound
+        alive = alive & want.any(1)
+        live = alive & (e < lens)
+        if not bool(live.any()):
+            break
+        cid = ids[:, e]
+        g = gmat[cid.long()][:, :, None, :]           # (n_tiles, 12, 1, kc)
+
+        def row(i):
+            return g[:, i]
+
+        ou = ((row(0) * ox + row(1) * oy) + row(2) * oz) + row(3)
+        du = (row(0) * dx + row(1) * dy) + row(2) * dz
+        ov = ((row(4) * ox + row(5) * oy) + row(6) * oz) + row(7)
+        dv = (row(4) * dx + row(5) * dy) + row(6) * dz
+        ow = ((row(8) * ox + row(9) * oy) + row(10) * oz) + row(11)
+        dw = (row(8) * dx + row(9) * dy) + row(10) * dz
+        t = -ow / dw
+        u = ou + t * du
+        v = ov + t * dv
+        valid = ((u >= -1e-3) & (v >= -1e-3) & ((1.0 - u) - v >= -1e-3)
+                 & (t > tmin) & live[:, None, None])
+        key = torch.where(valid, key_of(t, qmask), inf)
+        kmin = key.amin(-1)                               # (n_tiles, T)
+        k = torch.where(key == kmin[..., None], k_iota, kc).amin(-1)
+        flat = cid[:, None] * kc + k.to(torch.int32)
+        better = (kmin < inf) & ((kmin < best_key)
+                                 | ((kmin == best_key) & (flat < best_id)))
+        best_key = torch.where(better, kmin, best_key)
+        best_t = torch.where(better, t.gather(-1, k[..., None])[..., 0],
+                             best_t)
+        best_id = torch.where(better, flat, best_id)
+        steps = steps + live.to(torch.int32)
+    return best_t.reshape(-1), best_id.reshape(-1), steps
+
+
+def trace_tiles(lens, ids, entry_t, gmat, rays, any_hit: bool, qmask: int):
+    """Launch the kernel on CUDA tensors (the plain version for CPU
+    tensors). Returns what ``trace_tiles_plain`` returns."""
+    if rays.device.type == "cpu":
+        return trace_tiles_plain(lens, ids, entry_t, gmat, rays, any_hit,
+                                 qmask)
+    n_tiles, C = ids.shape
+    kc = gmat.shape[2]
+    kernels.require(lens, "lens", torch.int32, (n_tiles,))
+    kernels.require(ids, "ids", torch.int32, (n_tiles, C))
+    kernels.require(entry_t, "entry_t", torch.float32, (n_tiles, C))
+    kernels.require(gmat, "gmat", torch.float32, (C, 12, kc))
+    kernels.require(rays, "rays", torch.float32, (n_tiles * TILE, 8))
+    if kc % 4 or 12 * kc * 4 > 48 * 1024:
+        raise ValueError(f"cluster width {kc} must be a multiple of 4 and "
+                         "at most 1024")
+    dev = rays.device
+    out_t = torch.empty(n_tiles * TILE, dtype=torch.float32, device=dev)
+    out_win = torch.empty(n_tiles * TILE, dtype=torch.int32, device=dev)
+    steps = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    err = kernels.library().yacge_cluster_launch(
+        lens.data_ptr(), ids.data_ptr(), entry_t.data_ptr(), gmat.data_ptr(),
+        rays.data_ptr(), n_tiles, C, kc, int(any_hit), qmask,
+        out_t.data_ptr(), out_win.data_ptr(), steps.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "cluster kernel")
+    kernels.LAUNCHES["clusters"] += 1
+    return out_t, out_win, steps

@@ -11,7 +11,9 @@ the same selection the trace kernel makes ray by ray. Dot products are
 summed x + y + z in that order, as in the kernel.
 
 Every function takes rays ``o``, ``d`` (P, 3) and scalar-or-(P,) ``tmin``
-/ ``tmax`` and returns a ``Hit``. Meshes and voxel worlds are not ported.
+/ ``tmax`` and returns a ``Hit``. ``intersect_scene`` then sweeps the
+scene's cluster mesh (ops/mesh_clusters.py), clipped to the primitives'
+nearest hit. Smaller meshes and voxel worlds are not ported.
 """
 
 from __future__ import annotations
@@ -281,9 +283,39 @@ INTERSECTORS = (("spheres", intersect_spheres), ("boxes", intersect_boxes),
                 ("triangles", intersect_triangles))
 
 
-def intersect_scene(scene, o, d, tmin, tmax) -> Hit:
-    """Nearest hit across every primitive table."""
+def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
+                    lod: bool = False, fine: bool = False,
+                    presort: bool = True, impl: str = "plain") -> Hit:
+    """Nearest hit across every primitive table, then the cluster mesh.
+
+    The primitives' best t (+1e-3) clips the mesh sweep's tmax. The mesh
+    set follows the population: ``lod`` and ``shadow`` -> the shadow proxy
+    set, ``lod`` -> the LOD proxy set, ``fine`` -> the fine proxy set, each
+    only when the scene has it; the proxy sets start at
+    ``max(tmin, t_bias)``. ``shadow`` queries run in any-hit mode when
+    every mesh material is opaque or the scene's shadows are binary.
+    ``presort`` bins the rays before the sweep; ``impl`` picks the sweep
+    ("kernel": K3, "plain": its plain version)."""
     h = Hit.miss(o)
     for name, fn in INTERSECTORS:
         h = merge(h, fn(getattr(scene, name), o, d, tmin, tmax))
-    return h
+    mc = scene.mesh_clusters
+    if mc is None:
+        return h
+    from .mesh_clusters import intersect_clusters
+    t_clip = torch.minimum(_col(tmax, o)[:, 0], h.t + 1e-3)
+    mc_tmin = tmin
+    proxy = None
+    if lod and shadow and scene.mesh_clusters_shadow is not None:
+        proxy = scene.mesh_clusters_shadow
+    elif lod and scene.mesh_clusters_lod is not None:
+        proxy = scene.mesh_clusters_lod
+    elif fine and scene.mesh_clusters_fine is not None:
+        mc = scene.mesh_clusters_fine
+    if proxy is not None:
+        mc = proxy
+        mc_tmin = torch.clamp(_col(tmin, o)[:, 0], min=mc.t_bias)
+    return merge(h, intersect_clusters(
+        mc, o, d, mc_tmin, t_clip,
+        any_hit=shadow and (scene.mesh_all_opaque or scene.binary_shadows),
+        presort=presort, impl=impl))

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel, so a run can show the main path went through the kernels.
-LAUNCHES = {"trace": 0, "post": 0}
+LAUNCHES = {"trace": 0, "post": 0, "clusters": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +43,8 @@ _SIGNATURES = {
     "yacge_post_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _F, _F, _I, _F, _F, _F, _F, _I,
                            _I, _F, _F, _F, _F, _F, _F, _F, _F, _P], _I),
+    "yacge_cluster_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _P, _P, _P, _P], _I),
 }
 
 

@@ -104,10 +104,19 @@ def trace_planes_plain(scene: SceneData, params_row: torch.Tensor,
     seed = sampler.per_frame_seed(px, py, frame_idx, cfg.seed_salt)
     res = trace_all(scene, o.reshape(-1, 3), d.reshape(-1, 3),
                     seed.reshape(-1), cfg)
-    planes = torch.cat([res.radiance, res.is_sky.to(torch.float32)[:, None],
-                        res.albedo, res.normal, res.depth[:, None],
-                        res.lane_rays.to(torch.float32)[:, None]], dim=1)
-    return planes.T.reshape(12, height, width).contiguous()
+    return result_planes(res, width, height)
+
+
+def lane_columns(res) -> torch.Tensor:
+    """A TraceResult as (P, 12) f32 columns in ``PLANES`` order."""
+    return torch.cat([res.radiance, res.is_sky.to(torch.float32)[:, None],
+                      res.albedo, res.normal, res.depth[:, None],
+                      res.lane_rays.to(torch.float32)[:, None]], dim=1)
+
+
+def result_planes(res, width: int, height: int) -> torch.Tensor:
+    """A TraceResult of the (H, W) pixel grid as (12, H, W) planes."""
+    return lane_columns(res).T.reshape(12, height, width).contiguous()
 
 
 def trace_planes(packed: PackedScene, params: torch.Tensor,

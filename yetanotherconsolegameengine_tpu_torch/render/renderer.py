@@ -1,14 +1,17 @@
 """The frame engine: frame state, frame step, frame scan, renderer.
 
 Port of ``yetanotherconsolegameengine_tpu/render/renderer.py`` for static
-primitive scenes. A frame traces at ``hi_w = fb_w * ss`` by
-``hi_h = fb_h * 2 * ss`` pixels (two pixels per '▀' character cell) and
+primitive and cluster-mesh scenes. A frame traces at ``hi_w = fb_w * ss``
+by ``hi_h = fb_h * 2 * ss`` pixels (two pixels per '▀' character cell) and
 returns per-cell colors and ANSI-256 indices.
 
-On a CUDA device a frame is two kernel launches: the trace kernel writes
-the (12, H, W) G-buffer and the post kernel turns it into blended history,
-tone-mapped colors and ANSI indices (ops/trace_kernel.py, post_kernel.py).
-On the CPU the same stages run as plain PyTorch. ``impl`` selects
+On a CUDA device a primitive scene's frame is two kernel launches: the
+trace kernel writes the (12, H, W) G-buffer and the post kernel turns it
+into blended history, tone-mapped colors and ANSI indices
+(ops/trace_kernel.py, post_kernel.py). A scene with a cluster mesh traces
+through the PyTorch wavefront (``trace_mesh_planes``: ops/trace.py, whose
+mesh sweeps launch the cluster kernel K3) and posts through the same post
+kernel. On the CPU the same stages run as plain PyTorch. ``impl`` selects
 explicitly: "kernel" (the default on CUDA; refused on the CPU) or "plain".
 Nothing falls back from one to the other.
 
@@ -27,9 +30,12 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, RenderConfig
-from ..core.camera import CameraPose, ray_params
-from ..ops import ansi, post_kernel, taa, tonemap, trace_kernel
+from ..core import sampler
+from ..core.camera import CameraPose, make_jittered_rays, ray_params
+from ..ops import ansi, post_kernel, taa, tonemap, trace, trace_kernel
 from ..scene.tables import SceneData
+
+BLOCK = 16   # primary lanes of cluster scenes in BLOCK x BLOCK pixel blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,21 +107,68 @@ def frame_inputs(cams: CameraPose, state: FrameState, hi_w: int, hi_h: int,
     return params, frames, resets
 
 
+def trace_mesh_planes(scene: SceneData, params_row: torch.Tensor, frame,
+                      width: int, height: int, cfg: RenderConfig,
+                      impl: str) -> torch.Tensor:
+    """The (12, H, W) G-buffer of a cluster-mesh scene: jittered rays and
+    per-pixel seeds, then ``trace.trace_all``. With
+    ``cfg.block_order_primary`` and ``width % 16 == 0`` the lanes run in
+    16x16 pixel-block order (each 256-lane tile of the primary sweep is one
+    square block, swept unsorted), rows padded to a multiple of 16 with
+    dead lanes that the G-buffer, and so ``rays_traced``, leaves out.
+    ``frame`` is an int or a 0-d integer tensor."""
+    o, d = make_jittered_rays(None, width, height, frame, params=params_row)
+    dev = params_row.device
+    px = torch.arange(width, device=dev)[None].expand(height, width)
+    py = torch.arange(height, device=dev)[:, None].expand(height, width)
+    seed = sampler.per_frame_seed(px, py, frame, cfg.seed_salt)
+    if not (cfg.block_order_primary and width % BLOCK == 0):
+        res = trace.trace_all(scene, o.reshape(-1, 3), d.reshape(-1, 3),
+                              seed.reshape(-1), cfg, impl)
+        return trace_kernel.result_planes(res, width, height)
+    hp = (height + BLOCK - 1) // BLOCK * BLOCK
+
+    def to_blocks(x, fill):
+        if hp != height:
+            pad = torch.full((hp - height,) + x.shape[1:], fill,
+                             dtype=x.dtype, device=dev)
+            x = torch.cat([x, pad])
+        tail = x.shape[2:]
+        x = x.reshape(hp // BLOCK, BLOCK, width // BLOCK, BLOCK, *tail)
+        return x.transpose(1, 2).reshape(hp * width, *tail)
+
+    def from_blocks(x):
+        tail = x.shape[1:]
+        x = x.reshape(hp // BLOCK, width // BLOCK, BLOCK, BLOCK, *tail)
+        return x.transpose(1, 2).reshape(hp, width, *tail)[:height] \
+            .reshape(height * width, *tail)
+
+    res = trace.trace_all(
+        scene, to_blocks(o, 2.9e30), to_blocks(d, 1.0), to_blocks(seed, 0),
+        dataclasses.replace(cfg, presort_primary=False), impl)
+    cols = from_blocks(trace_kernel.lane_columns(res))
+    return cols.T.reshape(12, height, width).contiguous()
+
+
 def frame_step(packed, cams: CameraPose, inputs, row: int,
                state: FrameState, fb_w: int, fb_h: int, ss: int = 1,
                cfg: RenderConfig = DEFAULT_CONFIG, impl: str = "plain"):
     """Render frame ``row`` of a batch whose ``frame_inputs`` are
-    ``inputs``. Returns (FrameOutput, new FrameState)."""
+    ``inputs``. ``packed``: a ``trace_kernel.PackedScene`` of a primitive
+    scene, or the ``SceneData`` of a cluster-mesh scene. Returns
+    (FrameOutput, new FrameState)."""
     hi_w, hi_h = fb_w * ss, fb_h * 2 * ss
     params, frames, resets = inputs
-    if impl == "kernel":
+    if isinstance(packed, SceneData):
+        gbuf = trace_mesh_planes(packed, params[row], frames[row], hi_w,
+                                 hi_h, cfg, impl)
+    elif impl == "kernel":
         gbuf = trace_kernel.trace_planes(packed, params, frames, row,
                                          hi_w, hi_h, cfg)
-        post = post_kernel.post
     else:
         gbuf = trace_kernel.trace_planes_plain(
             packed.scene, params[row], int(frames[row]), hi_w, hi_h, cfg)
-        post = post_kernel.post_plain
+    post = post_kernel.post if impl == "kernel" else post_kernel.post_plain
     fuse_tail = ss == 1
     blended, img, idx, new_ae = post(
         gbuf, state.prev_gbuf, state.history, state.history_valid,
@@ -201,7 +254,11 @@ class RaytraceRenderer:
             self.fov_deg = float(fov_deg)
 
     def set_scene(self, scene: SceneData, reset_camera: bool = True):
-        self.packed = trace_kernel.pack_scene(scene.to(self.device))
+        scene = scene.to(self.device)
+        # A cluster-mesh scene traces through the wavefront, never through
+        # the trace kernel's packed tables.
+        self.packed = (scene if scene.mesh_clusters is not None
+                       else trace_kernel.pack_scene(scene))
         self.state = init_state(self.fb_w, self.fb_h, self.ss, self.device)
         if reset_camera:
             d = scene.defaults

@@ -4,12 +4,15 @@ Port of ``yetanotherconsolegameengine_tpu/scene/builders.py:21-248``: the
 same geometry, materials, lights, sky and camera defaults, so each table
 equals the JAX builder's element for element (tests/test_torch_scene.py
 holds them equal). They are re-authored rather than imported because the
-JAX builders return jnp arrays and import jax.
+JAX builders return jnp arrays and import jax. ``SCENE_BUILDERS`` also
+registers the mesh scenes of ``scene/mesh_scenes.py``, as the JAX registry
+does.
 """
 
 from __future__ import annotations
 
 from .materials import Material
+from .mesh_scenes import MESH_SCENE_BUILDERS
 from .tables import SceneBuilder, SceneData
 
 
@@ -147,4 +150,5 @@ SCENE_BUILDERS = {
     "primitives": build_cylinders_disks_triangles,
     "boxes": build_boxes_showcase,
     "glass": build_glass_showcase,
+    **MESH_SCENE_BUILDERS,
 }

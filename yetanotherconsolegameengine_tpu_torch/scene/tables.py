@@ -1,34 +1,58 @@
 """Scene as structure-of-arrays tensor tables.
 
 Port of ``yetanotherconsolegameengine_tpu/scene/tables.py`` for primitive
-scenes. ``SceneBuilder`` is the same imperative host builder, in numpy
-only (the JAX one returns jnp arrays), and pads every table to the same
-power-of-two bucket with ``mask=False`` rows, so its tables equal the JAX
-package's element for element. ``SceneData.to(device)`` moves a scene to
-the card. ``scene_from_numpy`` carries a JAX ``SceneData`` flattened to
-numpy (see ``SceneData.to_numpy`` for the keys) into the port.
+scenes and cluster meshes. ``SceneBuilder`` is the same imperative host
+builder, in numpy only (the JAX one returns jnp arrays), and pads every
+table to the same power-of-two bucket with ``mask=False`` rows, so its
+tables equal the JAX package's element for element. A mesh of at least
+``CLUSTER_MIN_TRIS`` triangles builds cluster tables (ops/mesh_clusters.py)
+and, by the same routing rules, its fine, LOD and shadow proxy sets
+(scene/lod.py) with composed ``t_bias``. ``SceneData.to(device)`` moves a
+scene to the card. ``scene_from_numpy`` carries a JAX ``SceneData``
+flattened to numpy (see ``SceneData.to_numpy`` for the keys) into the port.
 
-Meshes, voxel worlds and textures are not ported yet; a scene that holds
-one raises ``NotImplementedError`` naming the ROADMAP item.
+Smaller meshes (the on-device LBVH of the JAX package), voxel worlds and
+textures are not ported yet; a scene that holds one raises
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..ops.mesh_clusters import (MeshClusters, build_clusters,
+                                 gmat_from_jax)
 from ._tensors import Tensors
+from .lod import simplify_soup
 from .materials import Material, MaterialBank, MaterialTable, check_procs
+
+# Meshes of at least this many triangles build cluster tables; smaller ones
+# take the on-device LBVH in the JAX package (not ported).
+CLUSTER_MIN_TRIS = 16384
+# Secondary-ray (shadow / bounce) LOD proxy budget; built when it reduces
+# the mesh at least 4x.
+LOD_TARGET_TRIS = 24576
+# Occlusion-only proxy budget; built when the LOD set is at least 2x it.
+SHADOW_LOD_TARGET_TRIS = 6144
+# Primary-ray fine proxy budget; built for meshes of at least 3x it.
+PRIMARY_LOD_TARGET_TRIS = 98304
+# Proxy sets pack 512-triangle clusters (the full mesh 256).
+PROXY_KC = 512
+CLUSTER_SETS = ("mesh_clusters", "mesh_clusters_lod", "mesh_clusters_fine",
+                "mesh_clusters_shadow")
+_CLUSTER_FIELDS = ("cbmin", "cbmax", "gmat", "tri_rows", "bounds")
+_LBVH_ITEM = ("meshes under 16384 triangles (the on-device LBVH): "
+              "ROADMAP.md Queue 1 item 10b")
 
 PRIMITIVE_TABLES = ("spheres", "boxes", "rects", "cylinders", "disks",
                     "planes", "triangles")
 _VECTORS = ("ambient_color", "ambient_intensity", "bg_top", "bg_bottom")
 _UNPORTED = {
-    "mesh": "meshes: ROADMAP.md Queue 1 item 10",
-    "mesh_clusters": "meshes: ROADMAP.md Queue 1 item 10",
+    "mesh": _LBVH_ITEM,
     "voxels": "voxel worlds: ROADMAP.md Queue 1 item 11",
     "textures": "textures: ROADMAP.md Queue 1 item 8",
     "has_dynamic_textures": "video textures: ROADMAP.md Queue 1 item 8",
@@ -172,6 +196,15 @@ class SceneData(Tensors):
     # Does any material have transparency > 0? False lets the wavefront
     # trace drop its refraction stack.
     any_transparent: bool = True
+    # Cluster tables of the scene's mesh and its proxy sets (None: absent).
+    # Primary rays trace the fine set, bounces the LOD set and shadow rays
+    # the shadow set when present (ops/intersect.py).
+    mesh_clusters: Optional[MeshClusters] = None
+    mesh_clusters_lod: Optional[MeshClusters] = None
+    mesh_clusters_fine: Optional[MeshClusters] = None
+    mesh_clusters_shadow: Optional[MeshClusters] = None
+    # Every mesh material opaque? Then shadow sweeps run in any-hit mode.
+    mesh_all_opaque: bool = True
 
     @property
     def device(self) -> torch.device:
@@ -197,7 +230,30 @@ class SceneData(Tensors):
         d["name"] = np.asarray(self.name)
         d["binary_shadows"] = np.asarray(self.binary_shadows)
         d["defaults"] = np.asarray(self.defaults, np.float64)
+        if self.mesh_clusters is not None:
+            for sname in CLUSTER_SETS:
+                mc = getattr(self, sname)
+                if mc is None:
+                    continue
+                for f in _CLUSTER_FIELDS:
+                    d[f"{sname}.{f}"] = getattr(mc, f).cpu().numpy()
+                d[f"{sname}.t_bias"] = np.asarray(mc.t_bias, np.float64)
+            d["mesh_all_opaque"] = np.asarray(self.mesh_all_opaque)
         return d
+
+
+def _clusters_from_numpy(d: dict, sname: str) -> Optional[MeshClusters]:
+    """One cluster set of a flat dict; gmat may be in the JAX package's
+    (C, 24, kc) layout."""
+    if f"{sname}.gmat" not in d:
+        return None
+    gmat = np.asarray(d[f"{sname}.gmat"], np.float32)
+    if gmat.shape[1] == 24:
+        gmat = gmat_from_jax(gmat)
+    cols = {f: torch.from_numpy(np.array(d[f"{sname}.{f}"], np.float32))
+            for f in _CLUSTER_FIELDS if f != "gmat"}
+    return MeshClusters(gmat=torch.from_numpy(np.array(gmat)), **cols,
+                        t_bias=float(d[f"{sname}.t_bias"]))
 
 
 def scene_from_numpy(d: dict) -> SceneData:
@@ -211,7 +267,10 @@ def scene_from_numpy(d: dict) -> SceneData:
             raise NotImplementedError(f"{what} is not ported")
     known = {f"{t}.{f.name}" for t, cls in _TABLE_TYPES.items()
              for f in dataclasses.fields(cls)}
-    known |= set(_VECTORS) | {"name", "binary_shadows", "defaults"}
+    known |= set(_VECTORS) | {"name", "binary_shadows", "defaults",
+                              "mesh_all_opaque"}
+    known |= {f"{sname}.{f}" for sname in CLUSTER_SETS
+              for f in _CLUSTER_FIELDS + ("t_bias",)}
     unknown = set(d) - known - set(_UNPORTED)
     if unknown:
         raise KeyError(f"unknown scene fields {sorted(unknown)}")
@@ -228,7 +287,9 @@ def scene_from_numpy(d: dict) -> SceneData:
         **{k: torch.from_numpy(np.array(d[k], np.float32)) for k in _VECTORS},
         name=str(d["name"]), binary_shadows=bool(d["binary_shadows"]),
         defaults=tuple(float(v) for v in np.asarray(d["defaults"])),
-        any_transparent=any_transparent)
+        any_transparent=any_transparent,
+        mesh_all_opaque=bool(d.get("mesh_all_opaque", True)),
+        **{sname: _clusters_from_numpy(d, sname) for sname in CLUSTER_SETS})
 
 
 class SceneBuilder:
@@ -245,6 +306,7 @@ class SceneBuilder:
         self._planes: list = []
         self._triangles: list = []
         self._lights: list = []
+        self._mesh_tris: list = []   # (tris (N, 3, 3), mat_id)
         self.ambient_color = (1.0, 1.0, 1.0)
         self.ambient_intensity = 0.075
         self.bg_top = (0.6, 0.8, 1.0)
@@ -295,6 +357,11 @@ class SceneBuilder:
     def add_triangle(self, a, b, c, mat: Material):
         self._triangles.append((tuple(a), tuple(b), tuple(c), self._mid(mat)))
 
+    def add_mesh_triangles(self, tris, mat: Material):
+        """Bulk triangles for the mesh accel; ``tris`` is (N, 3, 3)."""
+        mid = self._mid(mat)
+        self._mesh_tris.append((np.asarray(tris, np.float32), mid))
+
     def add_light(self, pos, color, intensity):
         self._lights.append((tuple(pos), tuple(color), float(intensity)))
 
@@ -304,7 +371,47 @@ class SceneBuilder:
         self.default_pitch = float(pitch)
         self.default_fov = float(fov)
 
-    def build(self) -> SceneData:
+    def _mesh_sets(self) -> dict:
+        """Cluster tables of the mesh and its proxy sets, by the JAX
+        package's routing rules (scene/tables.py:436-477 there)."""
+        tris = np.concatenate([t.reshape(-1, 3, 3)
+                               for t, _ in self._mesh_tris])
+        mat_ids = np.concatenate([np.full(t.reshape(-1, 3, 3).shape[0], m,
+                                          np.int32)
+                                  for t, m in self._mesh_tris])
+        n = tris.shape[0]
+        if n < CLUSTER_MIN_TRIS:
+            raise NotImplementedError(
+                f"a mesh of {n} triangles: {_LBVH_ITEM} is not ported")
+        sets = dict(mesh_clusters=build_clusters(
+            tris[:, 0], tris[:, 1], tris[:, 2], mat_ids))
+        target = min(LOD_TARGET_TRIS, max(8192, n // 4))
+        lod_tris, lod_mats, t_bias = simplify_soup(tris, mat_ids, target)
+        # Secondary-ray origins sit on the fine surface when there is one,
+        # so its deviation adds to the coarser sets' t_bias.
+        fine_bias = 0.0
+        if n >= 3 * PRIMARY_LOD_TARGET_TRIS:
+            f_tris, f_mats, fine_bias = simplify_soup(
+                tris, mat_ids, PRIMARY_LOD_TARGET_TRIS)
+            sets["mesh_clusters_fine"] = build_clusters(
+                f_tris[:, 0], f_tris[:, 1], f_tris[:, 2], f_mats,
+                kc=PROXY_KC)
+        if lod_tris.shape[0] <= n // 4:
+            sets["mesh_clusters_lod"] = build_clusters(
+                lod_tris[:, 0], lod_tris[:, 1], lod_tris[:, 2], lod_mats,
+                t_bias=t_bias + fine_bias, kc=PROXY_KC)
+            if lod_tris.shape[0] >= 2 * SHADOW_LOD_TARGET_TRIS:
+                s_tris, s_mats, s_bias = simplify_soup(
+                    lod_tris, lod_mats, SHADOW_LOD_TARGET_TRIS)
+                sets["mesh_clusters_shadow"] = build_clusters(
+                    s_tris[:, 0], s_tris[:, 1], s_tris[:, 2], s_mats,
+                    t_bias=t_bias + fine_bias + s_bias, kc=PROXY_KC)
+        return sets
+
+    def build(self, clusters: Optional[dict] = None) -> SceneData:
+        """``clusters``: prebuilt cluster sets ({"mesh_clusters": ...,
+        optionally the proxy sets}) that replace the size routing of the
+        added mesh triangles, as the forced test scenes need."""
         f32, i32 = np.float32, np.int32
 
         def col(items, idx, dtype, width=0):
@@ -358,6 +465,8 @@ class SceneBuilder:
                         pos=col(self._lights, 0, f32, 3),
                         color=col(self._lights, 1, f32, 3),
                         intensity=col(self._lights, 2, f32))
+        if clusters is None:
+            clusters = self._mesh_sets() if self._mesh_tris else {}
         vec = lambda v: torch.tensor(v, dtype=torch.float32)
         return SceneData(
             materials=self.bank.build(),
@@ -370,4 +479,7 @@ class SceneBuilder:
             defaults=(*(float(x) for x in self.default_pos),
                       self.default_yaw, self.default_pitch, self.default_fov),
             any_transparent=any(m.transparency > 0.0
-                                for m in self.bank._mats))
+                                for m in self.bank._mats),
+            mesh_all_opaque=all(self.bank._mats[mid].transparency <= 0.0
+                                for _, mid in self._mesh_tris),
+            **clusters)

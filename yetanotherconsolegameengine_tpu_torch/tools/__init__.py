@@ -1,0 +1,1 @@
+"""Measurement tools of the port that run on a CUDA card."""

@@ -1,0 +1,255 @@
+"""Where a frame's time goes on the card, every number from one process.
+
+    python3 -m yetanotherconsolegameengine_tpu_torch.tools.profile_frame
+
+Renders the dragon at 240x135 cells (ss=1, default ``RenderConfig``) with
+the kernels (``impl="kernel"``) after three warm-up frames:
+
+1. one frame with a CUDA-event pair around every cluster sweep (K3): its
+   set, tiles, active rays, entries visited of those listed, and time;
+2. ``WALL_FRAMES`` frames with the profiler off: ms/frame by a
+   synchronised host clock and by CUDA events, rays/frame and the kernel
+   wrappers' launches per frame;
+3. ``PROF_FRAMES`` frames under ``torch.profiler`` with a range around each
+   stage (tile cull, the rest of ``intersect_clusters``, K3, shadow rays,
+   compaction, post): device busy time (the union of device operations)
+   split by the innermost stage that encloses each operation, device
+   kernels and copies per frame, and the host time inside each stage.
+
+The device idle share is 1 - busy / wall, given both for the profiled
+frames' own wall and for step 2's profiler-off wall (device work per frame
+does not depend on the profiler; host time does). Writes
+``chiprun_out/profile_dragon.txt`` under the working directory; exits
+non-zero without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+# (module attribute, stage label), innermost stages first: an operation
+# counts for the first listed stage whose device range encloses it.
+STAGES = (
+    ("cluster_kernel.trace_tiles", "K3 cluster sweeps"),
+    ("mesh_clusters._tile_cull", "tile cull + list sort (torch)"),
+    ("mesh_clusters.intersect_clusters",
+     "prefilter, binning sort, unsort, resolve (torch)"),
+    ("trace.transmittance_to_lights", "shadow rays outside the sweep (torch)"),
+    ("trace._compact", "compaction (torch)"),
+    ("post_kernel.post", "K1 post"),
+)
+OTHER = "torch wavefront: ray gen, shading, u8 grids"
+SCENE, W, H = "dragon", 240, 135
+WALL_FRAMES, PROF_FRAMES = 20, 5
+OUT = "chiprun_out"
+
+
+def union_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals in microseconds, in
+    milliseconds."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total / 1e3
+
+
+def busy_by_stage(ops, spans) -> dict:
+    """Device time (ms) of ``ops`` [(start, end, name)] grouped by the first
+    stage in ``STAGES`` order whose device ranges ``spans`` {label: [(start,
+    end)]} enclose the operation; the rest under ``OTHER``. Each group is
+    the union of its operations, so the groups sum to the total busy time
+    when operations do not overlap."""
+    groups = collections.defaultdict(list)
+    for s, e, _ in ops:
+        label = OTHER
+        for _, stage in STAGES:
+            if any(a <= s and e <= b for a, b in spans.get(stage, ())):
+                label = stage
+                break
+        groups[label].append((s, e))
+    return {k: union_ms(v) for k, v in groups.items()}
+
+
+def _patch_stages(record_function):
+    """Wrap each stage's module attribute in a profiler range; returns a
+    function that undoes it."""
+    from ..ops import cluster_kernel, mesh_clusters, post_kernel, trace
+    mods = dict(cluster_kernel=cluster_kernel, mesh_clusters=mesh_clusters,
+                trace=trace, post_kernel=post_kernel)
+    saved = []
+    for path, label in STAGES:
+        mod_name, attr = path.split(".")
+        mod = mods[mod_name]
+        fn = getattr(mod, attr)
+
+        def wrapped(*a, _fn=fn, _label=label, **k):
+            with record_function(_label):
+                return _fn(*a, **k)
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, wrapped)
+
+    def undo():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return undo
+
+
+def _sweep_lines(r, scene) -> list:
+    from ..ops import cluster_kernel
+    names = {id(getattr(scene, k).gmat): k
+             for k in ("mesh_clusters", "mesh_clusters_fine",
+                       "mesh_clusters_lod", "mesh_clusters_shadow")}
+    real = cluster_kernel.trace_tiles
+    calls = []
+
+    def timed(*args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(*args)
+        b.record()
+        calls.append((args, out, a, b))
+        return out
+
+    cluster_kernel.trace_tiles = timed
+    try:
+        r.render_many(1)
+    finally:
+        cluster_kernel.trace_tiles = real
+    torch.cuda.synchronize()
+    lines, total = ["K3 sweeps of one frame, in order:"], 0.0
+    for i, (args, out, a, b) in enumerate(calls):
+        ms = a.elapsed_time(b)
+        total += ms
+        lens, steps = args[0], out[2]
+        active = int((args[4][:, 7] > float("-inf")).sum())
+        lines.append(
+            f"  {i}: {names.get(id(args[3]), '?')} any_hit={bool(args[5])} "
+            f"tiles={lens.shape[0]} active_rays={active} "
+            f"C={args[3].shape[0]} kc={args[3].shape[2]} "
+            f"visited={int(steps.sum())} listed={int(lens.sum())} "
+            f"max_visited={int(steps.max())} {ms:.4f} ms")
+    lines.append(f"K3 total by CUDA events: {total:.4f} ms/frame over "
+                 f"{len(calls)} sweeps")
+    return lines
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_frame: no CUDA card", file=sys.stderr)
+        return 2
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ..ops import kernels
+    from ..render.renderer import RaytraceRenderer
+    from ..scene.builders import SCENE_BUILDERS
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    lines = [f"card: {card}; scene {SCENE} {W}x{H} cells, ss=1, "
+             f"default RenderConfig, impl=kernel"]
+    scene = SCENE_BUILDERS[SCENE]().to(dev)
+    r = RaytraceRenderer(scene, W, H, device=dev, impl="kernel")
+    r.render_many(3)
+    torch.cuda.synchronize()
+
+    # 1. K3 sweeps of one frame.
+    lines += _sweep_lines(r, scene)
+
+    # 2. Profiler off.
+    n = WALL_FRAMES
+    kernels.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    _, out = r.render_many(n)
+    stop.record()
+    torch.cuda.synchronize()
+    wall_off = (time.perf_counter() - t0) * 1e3 / n
+    launches = {k: v / n for k, v in kernels.LAUNCHES.items()}
+    lines.append(
+        f"profiler off, {n} frames: {wall_off:.4f} ms/frame by host clock, "
+        f"{start.elapsed_time(stop) / n:.4f} ms/frame by CUDA events; "
+        f"{int(out.rays_traced)} rays/frame (last frame); kernel wrapper "
+        f"launches per frame {launches}")
+
+    # 3. Profiler on, with stage ranges.
+    n = PROF_FRAMES
+    undo = _patch_stages(record_function)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render_many(n)
+            torch.cuda.synchronize()
+            wall_on = (time.perf_counter() - t0) * 1e3 / n
+    finally:
+        undo()
+    events = prof.events()
+    host_names = {ev.name for ev in events
+                  if ev.device_type != DeviceType.CUDA}
+    labels = {label for _, label in STAGES}
+    ops, spans = [], collections.defaultdict(list)
+    for ev in events:
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        iv = (ev.time_range.start, ev.time_range.end)
+        if ev.name in labels:
+            spans[ev.name].append(iv)
+        elif ev.name not in host_names:   # not a GPU-side operator range
+            ops.append(iv + (ev.name,))
+    busy = union_ms([o[:2] for o in ops]) / n
+    copies = sum(1 for o in ops if o[2].startswith(("Memcpy", "Memset")))
+    lines.append(
+        f"profiler on, {n} frames: {wall_on:.4f} ms/frame by host clock; "
+        f"device busy {busy:.4f} ms/frame; "
+        f"{(len(ops) - copies) / n:.1f} kernels and {copies / n:.1f} "
+        f"copies/memsets per frame")
+    lines.append(f"device idle share: {1.0 - busy / wall_on:.4f} in the "
+                 f"profiled frames; {1.0 - busy / wall_off:.4f} against the "
+                 f"profiler-off wall")
+    lines.append("device busy by stage (ms/frame, share of busy):")
+    groups = busy_by_stage(ops, spans)
+    for label, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        lines.append(f"  {ms / n:9.4f}  {ms / n / busy:6.1%}  {label}")
+    per_kernel = collections.Counter()
+    for s, e, name in ops:
+        per_kernel[name[:96]] += (e - s) / 1e3 / n
+    lines.append("top device operations (ms/frame):")
+    for name, ms in per_kernel.most_common(10):
+        lines.append(f"  {ms:9.4f}  {name}")
+    lines.append("host time inside each stage (ms/frame, profiler on; "
+                 "nested stages included in their parents):")
+    for ev in prof.key_averages():
+        if ev.key in labels and ev.cpu_time_total > 0:
+            lines.append(f"  {ev.cpu_time_total / 1e3 / n:9.4f}  "
+                         f"{ev.count / n:.1f} calls  {ev.key}")
+
+    text = "\n".join(lines)
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, f"profile_{SCENE}.txt"), "w") as f:
+        f.write(text + "\n")
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
