@@ -116,7 +116,7 @@ def test_cosine_sample_hemisphere():
 def test_ray_params_and_jittered_rays(pose):
     pos, yaw, pitch, fov = pose
     jcam = jcamera.CameraPose.create(pos, yaw, pitch, fov)
-    pcam = camera.CameraPose.create(pos, yaw, pitch, fov)
+    pcam = camera.CameraPose.create(pos, yaw, pitch, fov, device="cpu")
     for frame in (1, 3, 1000):
         want = np.asarray(jcamera.ray_params(jcam, 48, 32, frame))
         got = camera.ray_params(pcam, 48, 32, frame)
@@ -131,7 +131,7 @@ def test_ray_params_and_jittered_rays(pose):
     # Batched over frames: one (N, 18) call equals N single calls.
     frames = torch.tensor([1, 2, 3], dtype=torch.int32)
     batch = camera.CameraPose.create([pos] * 3, [yaw] * 3, [pitch] * 3,
-                                     [fov] * 3)
+                                     [fov] * 3, device="cpu")
     rows = camera.ray_params(batch, 48, 32, frames)
     for i, f in enumerate((1, 2, 3)):
         np.testing.assert_array_equal(

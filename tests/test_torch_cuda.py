@@ -126,23 +126,72 @@ def _cluster_case(kc, dev, n=5000):
 @pytest.mark.parametrize("kc", [256, 512])
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_cluster_kernel_matches_plain(dev, kc, any_hit):
+    """Nearest mode: t and winners bit-equal to the plain sweep, and so the
+    whole hit; any-hit mode: equal hit masks, every winner a real
+    blocker."""
     mc, o, d = _cluster_case(kc, dev)
     before = kernels.LAUNCHES["clusters"]
-    kw = dict(any_hit=any_hit, stats=True)
+    kw = dict(any_hit=any_hit)
     calls = record_sweeps(lambda: mesh_clusters.intersect_clusters(
         mc, o, d, 1e-3, 3e38, impl="kernel", **kw))
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["clusters"] == before + 1
     (args, got), = calls
-    res = sweep_contract(got, cluster_kernel.trace_tiles_plain(*args))
-    assert res["hits"] > 500 and res["t_bit_equal"]
-    hk, (sk, _) = mesh_clusters.intersect_clusters(mc, o, d, 1e-3, 3e38,
-                                                   impl="kernel", **kw)
-    hp, (sp, _) = mesh_clusters.intersect_clusters(mc, o, d, 1e-3, 3e38,
-                                                   impl="plain", **kw)
-    for k in ("hit", "t", "mat", "n", "u", "v"):
+    res = sweep_contract(got, cluster_kernel.trace_tiles_plain(*args), args)
+    assert res["hits"] > 500
+    hk = mesh_clusters.intersect_clusters(mc, o, d, 1e-3, 3e38,
+                                          impl="kernel", **kw)
+    hp = mesh_clusters.intersect_clusters(mc, o, d, 1e-3, 3e38,
+                                          impl="plain", **kw)
+    for k in (("hit",) if any_hit else ("hit", "t", "mat", "n", "u", "v")):
         assert torch.equal(getattr(hk, k), getattr(hp, k)), k
-    assert torch.equal(sk, sp)
+
+
+def _sweep_args(kc, dev, n_live=256, n_entries=None, seed=0):
+    """One tile of K3 inputs: ``n_live`` of its 256 rays take part, and its
+    list holds ``n_entries`` clusters (all by default) in near-to-far
+    order of their entry distance along the tile's mean direction."""
+    tris = np.concatenate([make_icosphere(5) * 1.3, make_icosphere(4) * 0.5
+                           + np.float32([1.2, 0.6, -0.8])])
+    mc = mesh_clusters.build_clusters(tris[:, 0], tris[:, 1], tris[:, 2],
+                                      np.zeros(len(tris), np.int32), kc=kc)
+    rng = np.random.RandomState(seed)
+    o = np.tile(np.float32([[0.1, 0.2, 4.0]]), (256, 1))
+    d = np.concatenate([rng.uniform(-0.4, 0.4, (256, 2)),
+                        -np.ones((256, 1))], 1).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tinit = np.full(256, 3.0e37, np.float32)
+    tinit[rng.permutation(256)[n_live:]] = -np.inf
+    rays = np.concatenate([o, d, np.full((256, 1), 1e-3, np.float32),
+                           tinit[:, None]], 1).astype(np.float32)
+    C = mc.n_clusters
+    # Entry distances: the nearest point of each cluster box from the
+    # shared origin, a conservative lower bound on every triangle's t.
+    near = np.clip(o[0], mc.cbmin.numpy(), mc.cbmax.numpy())
+    entry = np.linalg.norm(near - o[0], axis=1).astype(np.float32) * 0.999
+    order = np.argsort(entry, kind="stable")
+    n = C if n_entries is None else n_entries
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return (t(np.int32([n])), t(order[None].astype(np.int32)),
+            t(entry[order][None]), mc.gmat.to(dev), t(rays))
+
+
+@pytest.mark.parametrize("kc,n_live,any_hit", [
+    (256, 256, False), (256, 16, False), (512, 256, False), (512, 16, False),
+    (256, 16, True), (512, 256, True)])
+def test_cluster_kernel_long_list_and_few_live_rays(dev, kc, n_live, any_hit):
+    """One tile whose list holds every cluster (at least 48 entries), with
+    all 256 or only 16 live rays, at kc 256 and 512."""
+    args = _sweep_args(kc, dev, n_live) + (any_hit, 2047 if kc == 512
+                                          else 1023)
+    assert int(args[0][0]) >= 48
+    before = kernels.LAUNCHES["clusters"]
+    got = cluster_kernel.trace_tiles(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["clusters"] == before + 1
+    res = sweep_contract(got, cluster_kernel.trace_tiles_plain(*args), args)
+    assert res["hits"] >= n_live // 2
+    assert int((got[1] >= 0).sum()) <= n_live
 
 
 def test_cluster_kernel_rejects_bad_inputs(dev):

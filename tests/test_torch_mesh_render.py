@@ -39,7 +39,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_plain_renderer_matches_cluster_goldens(name):
     goldens = np.load(_GOLDENS)
     before = kernels.LAUNCHES["clusters"]
-    r = RaytraceRenderer(FORCED_SCENE_BUILDERS[name](), FB_W, FB_H)
+    r = RaytraceRenderer(FORCED_SCENE_BUILDERS[name](), FB_W, FB_H,
+                         device="cpu")
     assert isinstance(r.packed, SceneData)   # never the trace kernel's tables
     for _ in range(FRAMES):
         out = r.render()
@@ -70,7 +71,7 @@ def _two_light_scene() -> SceneData:
 
 
 def _frame(scene, cfg=DEFAULT_CONFIG, w=32, h=20):
-    out = RaytraceRenderer(scene, w, h, cfg=cfg).render()
+    out = RaytraceRenderer(scene, w, h, cfg=cfg, device="cpu").render()
     return out.top_rgb.numpy(), out.bot_rgb.numpy(), int(out.rays_traced)
 
 
@@ -123,7 +124,8 @@ def test_mesh_scene_renders_without_jax():
         "RaytraceRenderer\n"
         "from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import "
         "FORCED_SCENE_BUILDERS\n"
-        "r = RaytraceRenderer(FORCED_SCENE_BUILDERS['fine_forced'](), 16, 8)\n"
+        "r = RaytraceRenderer(FORCED_SCENE_BUILDERS['fine_forced'](), 16, 8,"
+        " device='cpu')\n"
         "out = r.render()\n"
         "assert out.fg_ansi.shape == (8, 16) and int(out.rays_traced) > 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "

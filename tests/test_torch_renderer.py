@@ -31,7 +31,7 @@ def goldens():
 @pytest.mark.parametrize("name", ["test", "cornell", "mirror_spheres",
                                   "primitives", "boxes", "glass"])
 def test_renderer_matches_golden(goldens, name):
-    r = RaytraceRenderer(SCENE_BUILDERS[name](), FB_W, FB_H)
+    r = RaytraceRenderer(SCENE_BUILDERS[name](), FB_W, FB_H, device="cpu")
     for _ in range(FRAMES):
         out = r.render()
     np.testing.assert_allclose(out.top_rgb.numpy(), goldens[f"{name}_top"],
@@ -42,8 +42,8 @@ def test_renderer_matches_golden(goldens, name):
 
 def test_render_many_equals_repeated_render():
     scene = SCENE_BUILDERS["mirror_spheres"]()
-    one = RaytraceRenderer(scene, 24, 16)
-    many = RaytraceRenderer(scene, 24, 16)
+    one = RaytraceRenderer(scene, 24, 16, device="cpu")
+    many = RaytraceRenderer(scene, 24, 16, device="cpu")
     outs = [one.render() for _ in range(3)]
     grids, last = many.render_many(3, rgb=True)
     for i, out in enumerate(outs):
@@ -60,7 +60,7 @@ def test_render_many_equals_repeated_render():
 
 
 def test_moving_camera_resets_history():
-    r = RaytraceRenderer(SCENE_BUILDERS["cornell"](), 24, 16)
+    r = RaytraceRenderer(SCENE_BUILDERS["cornell"](), 24, 16, device="cpu")
     poses = [((0.0, 1.0, 3.0 + 0.5 * i), 0.0, 0.0) for i in range(3)]
     grids, _ = r.render_many(3, poses=poses)
     assert grids[0].shape == (3, 16, 24)
@@ -70,7 +70,8 @@ def test_moving_camera_resets_history():
 
 
 def test_supersampled_frame():
-    r = RaytraceRenderer(SCENE_BUILDERS["cornell"](), 12, 8, ss=2)
+    r = RaytraceRenderer(SCENE_BUILDERS["cornell"](), 12, 8, ss=2,
+                         device="cpu")
     out = r.render()
     assert out.top_rgb.shape == (8, 12, 3)
     assert torch.isfinite(out.top_rgb).all()
@@ -79,7 +80,7 @@ def test_supersampled_frame():
 
 
 def test_set_scene_resize_and_camera():
-    r = RaytraceRenderer(SCENE_BUILDERS["cornell"](), 24, 16)
+    r = RaytraceRenderer(SCENE_BUILDERS["cornell"](), 24, 16, device="cpu")
     r.render()
     r.set_scene(SCENE_BUILDERS["glass"]())
     assert r.state.frame_idx == 0 and r.cam_pos == [0.0, 1.2, 0.5]
@@ -92,9 +93,11 @@ def test_set_scene_resize_and_camera():
 
 def test_kernel_impl_needs_cuda():
     with pytest.raises(ValueError, match="CUDA"):
-        RaytraceRenderer(SCENE_BUILDERS["cornell"](), 24, 16, impl="kernel")
+        RaytraceRenderer(SCENE_BUILDERS["cornell"](), 24, 16, device="cpu",
+                         impl="kernel")
     with pytest.raises(ValueError):
-        RaytraceRenderer(SCENE_BUILDERS["cornell"](), 24, 16, impl="xla")
+        RaytraceRenderer(SCENE_BUILDERS["cornell"](), 24, 16, device="cpu",
+                         impl="xla")
 
 
 def test_port_runs_without_jax():
@@ -106,7 +109,8 @@ def test_port_runs_without_jax():
         "RaytraceRenderer\n"
         "from yetanotherconsolegameengine_tpu_torch.scene.builders import "
         "SCENE_BUILDERS\n"
-        "out = RaytraceRenderer(SCENE_BUILDERS['cornell'](), 24, 16).render()\n"
+        "out = RaytraceRenderer(SCENE_BUILDERS['cornell'](), 24, 16,"
+        " device='cpu').render()\n"
         "assert out.fg_ansi.shape == (16, 24)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'yetanotherconsolegameengine_tpu' or "

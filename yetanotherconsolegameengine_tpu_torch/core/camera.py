@@ -17,6 +17,7 @@ import math
 import numpy as np
 import torch
 
+from ..devices import resolve_device
 from . import sampler
 
 
@@ -31,7 +32,9 @@ class CameraPose:
 
     @staticmethod
     def create(pos=(0.0, 1.0, 0.0), yaw=0.0, pitch=0.0, fov_deg=60.0,
-               device="cpu") -> "CameraPose":
+               device="cuda") -> "CameraPose":
+        """A pose on ``device``: the card unless ``"cpu"`` is given."""
+        device = resolve_device(device)
         f = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device)
         return CameraPose(pos=f(pos), yaw=f(yaw), pitch=f(pitch),
                           fov_deg=f(fov_deg))

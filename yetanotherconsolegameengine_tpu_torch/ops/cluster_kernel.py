@@ -4,9 +4,9 @@ Port of ``yetanotherconsolegameengine_tpu/ops/mesh_clusters.py``
 ``_trace_kernel`` / ``_run_kernel``. Given per-tile candidate lists
 (cluster ids in near-to-far order of their entry distance), the cluster
 blocks and the binned rays, return per ray the winning triangle and its t,
-and per tile the number of list entries visited. The CUDA source is
-``csrc/cluster_kernel.cu``; its header comment states the arithmetic and
-the winner rule, which ``trace_tiles_plain`` follows operation by operation.
+and per tile the number of list entries tested. The CUDA source is
+``csrc/cluster_kernel.cu``; its header comment states the arithmetic, the
+winner rule and the split schedule.
 
 Inputs (all on one device):
   lens    (n_tiles,) i32        list lengths
@@ -16,6 +16,15 @@ Inputs (all on one device):
   rays    (n_tiles * 256, 8) f32  o, d, tmin, tinit (-inf: not taking part)
 Outputs: t (P,) f32 (3e38 without a hit), win (P,) i32 flat triangle id
 cluster * kc + k (-1 without a hit), steps (n_tiles,) i32.
+
+``trace_tiles_plain`` defines the function: it walks each tile's list in
+order. The kernel cuts the lists into pieces that run in parallel and
+combines them through one 64-bit word per ray (``pack_words``: the
+order-preserving image of key(t) above the flat id), so in nearest mode it
+returns the same t and winners, bit for bit; ``steps`` then counts entries
+tested over all pieces and may exceed the serial walk's. In any-hit mode
+(every hit ends the ray) both give the same hit mask, but the kernel may
+return another blocker. ``unpack_words`` is the kernel's epilogue.
 
 ``trace_tiles`` launches the kernel for CUDA tensors and runs
 ``trace_tiles_plain`` for CPU tensors, where no kernel exists.
@@ -27,8 +36,13 @@ import torch
 
 from . import kernels
 
-TILE = 256         # rays per tile = threads per block in the kernel
+TILE = 256         # rays per tile
 NO_HIT_T = 3.0e38
+# The kernel's split schedule (kPiece, kRaysPerBlock in
+# csrc/cluster_kernel.cu): list entries and rays of a tile per work item.
+PIECE = 2
+RAYS_PER_BLOCK = 128
+_TOP = 1 << 63
 
 
 def key_of(t: torch.Tensor, qmask: int) -> torch.Tensor:
@@ -38,13 +52,56 @@ def key_of(t: torch.Tensor, qmask: int) -> torch.Tensor:
     return (t.view(torch.int32) & ~qmask).view(torch.float32)
 
 
+def order_key(key: torch.Tensor) -> torch.Tensor:
+    """The kernel's order-preserving uint32 image of f32 keys, as int64:
+    negative keys bit-inverted, others with the sign bit set; -0 maps
+    with +0."""
+    key = torch.where(key == 0, torch.zeros_like(key), key)
+    b = key.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(b >= 1 << 31, b ^ 0xFFFFFFFF, b | 1 << 31)
+
+
+def pack_words(t, win, rays, qmask: int) -> torch.Tensor:
+    """The kernel's per-ray words for a result (t, win): (order image of
+    key(t)) << 32 | win for a hit, (image of key(tinit)) << 32 | 0
+    without one. Returned as int64 with the top bit flipped, so signed
+    order is the kernel's unsigned order and ``torch.minimum`` combines."""
+    key = torch.where(win >= 0, key_of(t, qmask),
+                      key_of(rays[:, 7].contiguous(), qmask))
+    low = torch.clamp(win, min=0).to(torch.int64)
+    return ((order_key(key) << 32) | low) ^ _TOP
+
+
+def winner_t(gmat, rays, win) -> torch.Tensor:
+    """Each winner's t from its W rows in the sweep's operation order
+    (NO_HIT_T where win < 0): the kernel's epilogue."""
+    kc = gmat.shape[2]
+    flat = torch.clamp(win, min=0).long()
+    w = gmat[flat // kc, 8:12, flat % kc]                  # (P, 4)
+    r = rays
+    ow = ((w[:, 0] * r[:, 0] + w[:, 1] * r[:, 1]) + w[:, 2] * r[:, 2]) \
+        + w[:, 3]
+    dw = (w[:, 0] * r[:, 3] + w[:, 1] * r[:, 4]) + w[:, 2] * r[:, 5]
+    return torch.where(win >= 0, -ow / dw, NO_HIT_T)
+
+
+def unpack_words(words, gmat, rays, qmask: int):
+    """Combined words -> (t, win), as the kernel's epilogue reads them: a
+    word below the ray's starting word is a hit."""
+    hit = words < pack_words(rays[:, 7], torch.full_like(words, -1,
+                                                         dtype=torch.int32),
+                             rays, qmask)
+    win = torch.where(hit, (words & 0xFFFFFFFF).to(torch.int32), -1)
+    return winner_t(gmat, rays, win), win
+
+
 def trace_tiles_plain(lens, ids, entry_t, gmat, rays, any_hit: bool,
                       qmask: int):
-    """The kernel's computation in PyTorch: list position by list position,
-    every tile's entry block against every ray of the tile at once, with
-    the kernel's exit vote before each entry (it decides which hit any-hit
-    mode returns). Syncs with the host once per list position to stop when
-    no tile is left."""
+    """The function in PyTorch: list position by list position, every
+    tile's entry block against every ray of the tile at once, a tile ending
+    once no ray of it can improve on its next entry (in any-hit mode: once
+    every ray that can has a hit). Syncs with the host once per list
+    position to stop when no tile is left."""
     n_tiles, C = ids.shape
     kc = gmat.shape[2]
     dev = rays.device
@@ -111,16 +168,18 @@ def trace_tiles(lens, ids, entry_t, gmat, rays, any_hit: bool, qmask: int):
     kernels.require(entry_t, "entry_t", torch.float32, (n_tiles, C))
     kernels.require(gmat, "gmat", torch.float32, (C, 12, kc))
     kernels.require(rays, "rays", torch.float32, (n_tiles * TILE, 8))
-    if kc % 4 or 12 * kc * 4 > 48 * 1024:
+    if kc % 4 or 2 * 12 * kc * 4 > 200 * 1024:
         raise ValueError(f"cluster width {kc} must be a multiple of 4 and "
-                         "at most 1024")
+                         "at most 2132")
     dev = rays.device
-    out_t = torch.empty(n_tiles * TILE, dtype=torch.float32, device=dev)
-    out_win = torch.empty(n_tiles * TILE, dtype=torch.int32, device=dev)
+    P = n_tiles * TILE
+    best = torch.empty(P, dtype=torch.int64, device=dev)   # u64 words
+    out_t = torch.empty(P, dtype=torch.float32, device=dev)
+    out_win = torch.empty(P, dtype=torch.int32, device=dev)
     steps = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     err = kernels.library().yacge_cluster_launch(
         lens.data_ptr(), ids.data_ptr(), entry_t.data_ptr(), gmat.data_ptr(),
-        rays.data_ptr(), n_tiles, C, kc, int(any_hit), qmask,
+        rays.data_ptr(), n_tiles, C, kc, int(any_hit), qmask, best.data_ptr(),
         out_t.data_ptr(), out_win.data_ptr(), steps.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "cluster kernel")

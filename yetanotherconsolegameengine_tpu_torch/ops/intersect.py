@@ -22,6 +22,8 @@ import dataclasses
 
 import torch
 
+from ..devices import resolve_impl
+
 INF = 3.0e38
 
 
@@ -285,7 +287,7 @@ INTERSECTORS = (("spheres", intersect_spheres), ("boxes", intersect_boxes),
 
 def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
                     lod: bool = False, fine: bool = False,
-                    presort: bool = True, impl: str = "plain") -> Hit:
+                    presort: bool = True, impl=None) -> Hit:
     """Nearest hit across every primitive table, then the cluster mesh.
 
     The primitives' best t (+1e-3) clips the mesh sweep's tmax. The mesh
@@ -295,7 +297,9 @@ def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
     ``max(tmin, t_bias)``. ``shadow`` queries run in any-hit mode when
     every mesh material is opaque or the scene's shadows are binary.
     ``presort`` bins the rays before the sweep; ``impl`` picks the sweep
-    ("kernel": K3, "plain": its plain version)."""
+    ("kernel": K3, "plain": its plain version, None: from the rays'
+    device)."""
+    impl = resolve_impl(impl, o.device)
     h = Hit.miss(o)
     for name, fn in INTERSECTORS:
         h = merge(h, fn(getattr(scene, name), o, d, tmin, tmax))

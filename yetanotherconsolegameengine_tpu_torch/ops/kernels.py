@@ -1,13 +1,13 @@
 """Build the CUDA kernels of ``ops/csrc`` and bind them to PyTorch.
 
-At first use ``library()`` runs ``nvcc`` once over every ``csrc/*.cu``
-into one shared library with a plain C interface, under
-``build/torch_kernels/`` at the root of the checkout, named by a hash of
-the sources and flags, and loads it with ``ctypes``. Nothing is built at
-import time, so the CPU tests import this module on a machine with no
-``nvcc``. A failed build raises with nvcc's stderr; a launch that returns
-a CUDA error raises with its message. Nothing here falls back to the plain
-PyTorch versions.
+At first use ``library()`` compiles every ``csrc/*.cu`` (one ``nvcc``
+per source, all at once), links them into one shared library with a plain
+C interface under ``build/torch_kernels/`` at the root of the checkout,
+named by a hash of the sources and flags, and loads it with ``ctypes``.
+Nothing is built at import time, so the CPU tests import this module on a
+machine with no ``nvcc``. A failed build raises with nvcc's stderr; a
+launch that returns a CUDA error raises with its message. Nothing here
+falls back to the plain PyTorch versions.
 
 ``-fmad=false`` keeps the compiler from contracting a*b + c into one
 rounding, so the kernels round where the plain versions round. Never
@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-fmad=false")
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel, so a run can show the main path went through the kernels.
@@ -44,7 +44,7 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _F, _F, _I, _F, _F, _F, _F, _I,
                            _I, _F, _F, _F, _F, _F, _F, _F, _F, _P], _I),
     "yacge_cluster_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _P, _P, _P, _P], _I),
+                              _P, _P, _P, _P, _P], _I),
 }
 
 
@@ -76,18 +76,37 @@ def _source_key() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmd: list) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"libyacge_kernels_{_source_key()}.so"
     if not so.exists():
+        # One nvcc per source, all started together, then one link.
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o")
+                for src in sources()]
+        cmds = [[nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources(), objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        for cmd, p in zip(cmds, procs):
+            _, err = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{err}")
+        _run([nvcc_path(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+              *map(str, objs)])
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, (argtypes, restype) in _SIGNATURES.items():

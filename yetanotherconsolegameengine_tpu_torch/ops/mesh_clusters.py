@@ -32,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..devices import resolve_impl
 from ..scene._tensors import Tensors
 from . import cluster_kernel
 from .intersect import INF, Hit, _safe_div, cross3, dot3
@@ -283,7 +284,7 @@ def _column(x, P, device) -> torch.Tensor:
 
 def intersect_clusters(mc: MeshClusters, o, d, tmin, tmax,
                        any_hit: bool = False, presort: bool = True,
-                       impl: str = "plain", stats: bool = False):
+                       impl=None, stats: bool = False):
     """Hit query over the cluster tables. o/d: (P, 3); tmin/tmax scalar or
     (P,). Double-sided; the normal is flipped against the ray.
 
@@ -291,12 +292,12 @@ def intersect_clusters(mc: MeshClusters, o, d, tmin, tmax,
     blocking hit per ray instead of the nearest, and skips the resolve.
     ``presort=False`` tiles the caller's lane order. ``impl`` "kernel"
     sweeps with K3 (``cluster_kernel.trace_tiles``), "plain" with its
-    plain version. ``stats=True`` also returns (entries visited, list
-    length) per tile."""
-    if impl not in ("kernel", "plain"):
-        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    plain version; None picks from the rays' device and "kernel" off CUDA
+    raises. ``stats=True`` also returns (entries tested, list length) per
+    tile."""
     P = o.shape[0]
     dev = o.device
+    impl = resolve_impl(impl, dev)
     T = TILE
     t_lo = _column(tmin, P, dev)
     t_hi = _column(tmax, P, dev)

@@ -17,7 +17,7 @@ with the mesh parts of the JAX module: round 0 sweeps the fine proxy set
 and later rounds the LOD set, shadow rays the shadow set in light-major
 lane order, and between rounds the wavefront compacts to its active lanes
 (``WAVEFRONT_COMPACTION``). ``impl`` picks the mesh sweep: "kernel" (K3)
-or "plain".
+or "plain"; None picks from the rays' device (``devices.resolve_impl``).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import torch
 
 from ..config import RenderConfig
 from ..core import sampler
+from ..devices import resolve_impl
 from ..scene.materials import gather_material, sample_albedo
 from .intersect import INF, dot3, intersect_scene
 
@@ -95,12 +96,13 @@ def oren_nayar(albedo, n, wo, wi, sigma_rad: float):
 
 def transmittance_to_lights(scene, so, sd, max_dist, need, cfg: RenderConfig,
                             lod: bool = False, presort=None,
-                            impl: str = "plain"):
+                            impl=None):
     """Colored transmittance along shadow rays (binary occlusion when the
     scene asks for binary shadows). so/sd: (R, 3); max_dist, need: (R,).
     ``lod`` sends the mesh sweep to the shadow / LOD proxy set; ``presort``
     (default ``cfg.presort_shadow``) bins the rays first.
     Returns ((R, 3) transmittance, (R,) int32 traced shadow rays per lane)."""
+    impl = resolve_impl(impl, so.device)
     so = torch.where(need[:, None], so, 2.9e30)
     if presort is None:
         presort = cfg.presort_shadow
@@ -176,11 +178,12 @@ def _write_back(full: dict, cur: dict, lanes) -> None:
 
 
 def trace_all(scene, o0, d0, rng0, cfg: RenderConfig,
-              impl: str = "plain") -> TraceResult:
+              impl=None) -> TraceResult:
     """Trace every pixel's full path tree. o0/d0: (P, 3); rng0: (P,) int64
     SplitMix64 states. ``impl`` picks the cluster-mesh sweep."""
     P = o0.shape[0]
     dev = o0.device
+    impl = resolve_impl(impl, dev)
     S = stack_slots(cfg)
     sigma_rad = cfg.diffuse_sigma_deg * math.pi / 180.0
     use_stack = scene.any_transparent

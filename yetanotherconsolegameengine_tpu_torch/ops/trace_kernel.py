@@ -103,7 +103,7 @@ def trace_planes_plain(scene: SceneData, params_row: torch.Tensor,
     py = torch.arange(height, device=dev)[:, None].expand(height, width)
     seed = sampler.per_frame_seed(px, py, frame_idx, cfg.seed_salt)
     res = trace_all(scene, o.reshape(-1, 3), d.reshape(-1, 3),
-                    seed.reshape(-1), cfg)
+                    seed.reshape(-1), cfg, "plain")
     return result_planes(res, width, height)
 
 

@@ -12,8 +12,10 @@ into blended history, tone-mapped colors and ANSI indices
 through the PyTorch wavefront (``trace_mesh_planes``: ops/trace.py, whose
 mesh sweeps launch the cluster kernel K3) and posts through the same post
 kernel. On the CPU the same stages run as plain PyTorch. ``impl`` selects
-explicitly: "kernel" (the default on CUDA; refused on the CPU) or "plain".
-Nothing falls back from one to the other.
+explicitly: "kernel" (the default on CUDA; refused on the CPU) or "plain"
+(the default on the CPU). The renderer and ``init_state`` run on the card
+unless ``device="cpu"`` is given (``devices.py``). Nothing falls back from
+one to the other.
 
 ``frame_scan`` renders N frames in a Python loop: the camera rows, frame
 indices and TAA resets of all N frames are computed on the device first,
@@ -32,6 +34,7 @@ import torch
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..core import sampler
 from ..core.camera import CameraPose, make_jittered_rays, ray_params
+from ..devices import resolve_device, resolve_impl
 from ..ops import ansi, post_kernel, taa, tonemap, trace, trace_kernel
 from ..scene.tables import SceneData
 
@@ -65,7 +68,8 @@ class FrameOutput:
 
 
 def init_state(fb_w: int, fb_h: int, ss: int = 1,
-               device="cpu") -> FrameState:
+               device="cuda") -> FrameState:
+    device = resolve_device(device)
     hi_w, hi_h = fb_w * ss, fb_h * 2 * ss
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
     false = torch.zeros((), dtype=torch.bool, device=device)
@@ -109,7 +113,7 @@ def frame_inputs(cams: CameraPose, state: FrameState, hi_w: int, hi_h: int,
 
 def trace_mesh_planes(scene: SceneData, params_row: torch.Tensor, frame,
                       width: int, height: int, cfg: RenderConfig,
-                      impl: str) -> torch.Tensor:
+                      impl: Optional[str] = None) -> torch.Tensor:
     """The (12, H, W) G-buffer of a cluster-mesh scene: jittered rays and
     per-pixel seeds, then ``trace.trace_all``. With
     ``cfg.block_order_primary`` and ``width % 16 == 0`` the lanes run in
@@ -117,8 +121,9 @@ def trace_mesh_planes(scene: SceneData, params_row: torch.Tensor, frame,
     square block, swept unsorted), rows padded to a multiple of 16 with
     dead lanes that the G-buffer, and so ``rays_traced``, leaves out.
     ``frame`` is an int or a 0-d integer tensor."""
-    o, d = make_jittered_rays(None, width, height, frame, params=params_row)
     dev = params_row.device
+    impl = resolve_impl(impl, dev)
+    o, d = make_jittered_rays(None, width, height, frame, params=params_row)
     px = torch.arange(width, device=dev)[None].expand(height, width)
     py = torch.arange(height, device=dev)[:, None].expand(height, width)
     seed = sampler.per_frame_seed(px, py, frame, cfg.seed_salt)
@@ -152,11 +157,14 @@ def trace_mesh_planes(scene: SceneData, params_row: torch.Tensor, frame,
 
 def frame_step(packed, cams: CameraPose, inputs, row: int,
                state: FrameState, fb_w: int, fb_h: int, ss: int = 1,
-               cfg: RenderConfig = DEFAULT_CONFIG, impl: str = "plain"):
+               cfg: RenderConfig = DEFAULT_CONFIG,
+               impl: Optional[str] = None):
     """Render frame ``row`` of a batch whose ``frame_inputs`` are
     ``inputs``. ``packed``: a ``trace_kernel.PackedScene`` of a primitive
-    scene, or the ``SceneData`` of a cluster-mesh scene. Returns
+    scene, or the ``SceneData`` of a cluster-mesh scene. ``impl`` (None:
+    from the device) picks kernels or plain versions. Returns
     (FrameOutput, new FrameState)."""
+    impl = resolve_impl(impl, cams.pos.device)
     hi_w, hi_h = fb_w * ss, fb_h * 2 * ss
     params, frames, resets = inputs
     if isinstance(packed, SceneData):
@@ -203,12 +211,13 @@ def _rgb_u8(x: torch.Tensor) -> torch.Tensor:
 
 def frame_scan(packed, cams: CameraPose, state: FrameState, fb_w: int,
                fb_h: int, ss: int = 1, cfg: RenderConfig = DEFAULT_CONFIG,
-               impl: str = "plain", stack_rgb: bool = False):
+               impl: Optional[str] = None, stack_rgb: bool = False):
     """Render N frames (``cams`` has a leading (N,) axis). Returns
     ((fg_u8, bg_u8[, top_u8, bot_u8]) stacked (N, fb_h, fb_w[, 3]), the
     last FrameOutput, the final state)."""
     n = cams.pos.shape[0]
     dev = cams.pos.device
+    impl = resolve_impl(impl, dev)
     inputs = frame_inputs(cams, state, fb_w * ss, fb_h * 2 * ss, cfg)
     shapes = [(n, fb_h, fb_w)] * 2 + ([(n, fb_h, fb_w, 3)] * 2
                                        if stack_rgb else [])
@@ -229,24 +238,18 @@ def frame_scan(packed, cams: CameraPose, state: FrameState, fb_w: int,
 class RaytraceRenderer:
     """Owns the scene on its device, the frame state and the camera.
 
-    ``device``: where the frame runs. ``impl``: "kernel" (CUDA kernels;
-    the default on a CUDA device, refused elsewhere) or "plain" (PyTorch
-    ops; the default on the CPU).
+    ``device``: where the frame runs, the card unless ``"cpu"`` is given
+    (raises when there is no card). ``impl``: "kernel" (CUDA kernels; the
+    default on a CUDA device, refused elsewhere) or "plain" (PyTorch ops;
+    the default on the CPU).
     """
 
     def __init__(self, scene: SceneData, fb_w: int, fb_h: int, ss: int = 1,
                  cfg: RenderConfig = DEFAULT_CONFIG,
-                 fov_deg: Optional[float] = None, device="cpu",
+                 fov_deg: Optional[float] = None, device="cuda",
                  impl: Optional[str] = None):
-        self.device = torch.device(device)
-        if impl is None:
-            impl = "kernel" if self.device.type == "cuda" else "plain"
-        if impl not in ("kernel", "plain"):
-            raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
-        if impl == "kernel" and self.device.type != "cuda":
-            raise ValueError("impl='kernel' needs a CUDA device; the CPU has "
-                             "only the plain PyTorch path")
-        self.impl = impl
+        self.device = resolve_device(device)
+        self.impl = resolve_impl(impl, self.device)
         self.cfg = cfg
         self.fb_w, self.fb_h, self.ss = fb_w, fb_h, max(1, ss)
         self.set_scene(scene)

@@ -6,7 +6,10 @@ Renders the dragon at 240x135 cells (ss=1, default ``RenderConfig``) with
 the kernels (``impl="kernel"``) after three warm-up frames:
 
 1. one frame with a CUDA-event pair around every cluster sweep (K3): its
-   set, tiles, active rays, entries visited of those listed, and time;
+   set, tiles, work items, active rays, entries tested (and those the
+   serial walk of ``trace_tiles_plain`` visits, of those listed), the
+   lane-tests it needs, its least time on the card (``k3_work``) and its
+   time; then each sweep on its own, by CUDA events over 20 launches;
 2. ``WALL_FRAMES`` frames with the profiler off: ms/frame by a
    synchronised host clock and by CUDA events, rays/frame and the kernel
    wrappers' launches per frame;
@@ -48,6 +51,64 @@ OTHER = "torch wavefront: ray gen, shading, u8 grids"
 SCENE, W, H = "dragon", 240, 135
 WALL_FRAMES, PROF_FRAMES = 20, 5
 OUT = "chiprun_out"
+# Least-time model (H100 SXM data sheet at 700 W: fp32 outside the tensor
+# cores, HBM3): bound = max(operations / PEAK_FLOPS, bytes / PEAK_BYTES).
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 operations per K3 lane-test: six 3-term dot products (18 mul, 15
+# add), the division, u and v (2 mul, 2 add), 1-u-v (2 sub).
+K3_OPS = 40
+
+
+def roofline(ops: float, nbytes: float):
+    """(least ms, "operations" or "bytes") for work of ``ops`` fp32
+    operations moving ``nbytes``."""
+    t_ops = ops / PEAK_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k3_work(args, ref) -> dict:
+    """What one K3 sweep must do on these inputs, and its least time on the
+    card. ``ref``: ``trace_tiles_plain``'s result. A ray must test every
+    listed entry whose key is not above its final key (the plain winner's
+    key, or key(tinit) without a hit): no other entry can hold its winner.
+    Each lane-test is K3_OPS fp32 operations; the bytes are each input
+    read once and each output written once."""
+    from ..ops import cluster_kernel
+    lens, ids, entry_t, gmat, rays, _, qmask = args
+    n_tiles, C = ids.shape
+    kc = gmat.shape[2]
+    key = cluster_kernel.key_of
+    final = torch.where(ref[1] >= 0, key(ref[0], qmask),
+                        key(rays[:, 7].contiguous(), qmask))
+    fk = final.view(n_tiles, -1, 1)
+    ek = key(entry_t, qmask).view(n_tiles, 1, C)
+    listed = torch.arange(C, device=ids.device)[None] < lens[:, None]
+    tests = 0
+    for i in range(n_tiles):   # per tile: (256, C) booleans
+        tests += int(((ek[i] <= fk[i]) & listed[i, None]).sum()) * kc
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (lens, ids, entry_t, gmat, rays))
+    nbytes += rays.shape[0] * 8 + n_tiles * 4
+    bound, by = roofline(tests * K3_OPS, nbytes)
+    return {"tiles": n_tiles, "lane_tests": tests, "bytes": nbytes,
+            "bound_ms": bound, "bound_by": by}
+
+
+def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def union_ms(intervals) -> float:
@@ -127,20 +188,33 @@ def _sweep_lines(r, scene) -> list:
     finally:
         cluster_kernel.trace_tiles = real
     torch.cuda.synchronize()
-    lines, total = ["K3 sweeps of one frame, in order:"], 0.0
+    piece, rpb = cluster_kernel.PIECE, cluster_kernel.RAYS_PER_BLOCK
+    lines = [f"K3 sweeps of one frame, in order (split schedule: piece "
+             f"{piece}, {rpb} rays per block):"]
+    total = bound_total = 0.0
     for i, (args, out, a, b) in enumerate(calls):
         ms = a.elapsed_time(b)
-        total += ms
         lens, steps = args[0], out[2]
+        ref = cluster_kernel.trace_tiles_plain(*args)
+        work = k3_work(args, ref)
+        items = int(((lens + piece - 1) // piece).sum()) * (256 // rpb)
         active = int((args[4][:, 7] > float("-inf")).sum())
+        total += ms
+        bound_total += work["bound_ms"]
         lines.append(
             f"  {i}: {names.get(id(args[3]), '?')} any_hit={bool(args[5])} "
-            f"tiles={lens.shape[0]} active_rays={active} "
+            f"tiles={lens.shape[0]} items={items} active_rays={active} "
             f"C={args[3].shape[0]} kc={args[3].shape[2]} "
-            f"visited={int(steps.sum())} listed={int(lens.sum())} "
-            f"max_visited={int(steps.max())} {ms:.4f} ms")
+            f"tested={int(steps.sum())} serial={int(ref[2].sum())} "
+            f"listed={int(lens.sum())} lane_tests={work['lane_tests']} "
+            f"bound={work['bound_ms']:.5f} ms ({work['bound_by']}) "
+            f"{ms:.4f} ms share={work['bound_ms'] / ms:.2%}")
     lines.append(f"K3 total by CUDA events: {total:.4f} ms/frame over "
-                 f"{len(calls)} sweeps")
+                 f"{len(calls)} sweeps; bound {bound_total:.5f} ms")
+    alone = [cuda_ms(lambda: real(*args), 20) for args, *_ in calls]
+    lines.append("K3 per sweep on its own (ms by CUDA events, 20 launches): "
+                 + " ".join(f"{ms:.4f}" for ms in alone)
+                 + f"; sum {sum(alone):.4f}")
     return lines
 
 
