@@ -7,12 +7,16 @@ Phases (one line each; any failure raises and exits non-zero):
   2. build the CUDA kernels from yetanotherconsolegameengine_tpu_torch/ops/csrc
   3. trace kernel vs its plain PyTorch version (cornell, glass,
      mirror_spheres at 160x180, frame 3)
-  4. post kernel vs its plain version on traced cornell planes
+  4. post kernel vs its plain version on traced cornell planes at 160x180
+     and 240x270 (the dragon's frame size), fused tail on and off
   5. the renderer on the card vs tests/goldens.npz (48x28 cells, 4 frames)
   6. Cornell at 160x90 cells (160x180 pixels), ss=1, through
      RaytraceRenderer.render_many on the kernels: kernel vs plain renderer
      over 4 frames, then the timed run, whose kernel launch counts must be
-     non-zero
+     non-zero, then each kernel's time per call at the frame's shapes: as
+     device time (the mean duration of its launches, from torch.profiler)
+     and by CUDA events over back-to-back calls, which the wrapper's host
+     time can pace, beside its plain version and its least time on the card
   7. the cluster kernel (K3) vs its plain version on the dragon's sweeps of
      frame 3 at 240x270 pixels: every sweep of the frame (the fine set's
      primary rays, the shadow set's light-major any-hit shadow rays, the
@@ -24,9 +28,11 @@ Phases (one line each; any failure raises and exits non-zero):
   9. the dragon at 240x135 cells, ss=1: kernel vs plain renderer over 4
      frames, then the timed render_many, whose cluster and post kernel
      launch counts must be non-zero, then K3's own time on each sweep of
-     the frame against its plain version and its least time on the card
-Then a JSON line of per-kernel results, the card's name and power limit,
-and as the last line {"ok": true, "device": {...}}.
+     the frame (device time and CUDA events) against its plain version and
+     its least time on the card
+Then a JSON line of per-kernel results (``ms`` is the device time,
+``event_ms`` the CUDA-event time), the card's name and power limit, and as
+the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX: the JAX package is not needed on the card.
 """
@@ -55,7 +61,7 @@ from yetanotherconsolegameengine_tpu_torch.scene.builders import SCENE_BUILDERS
 from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import (
     FORCED_SCENE_BUILDERS)
 from yetanotherconsolegameengine_tpu_torch.tools.profile_frame import (
-    cuda_ms, k3_work, roofline)
+    cuda_ms, device_ms, k3_work, roofline)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRACE_SCENES = ("cornell", "glass", "mirror_spheres")
@@ -129,24 +135,34 @@ def _np(x):
     return None if x is None else x.detach().cpu().numpy()
 
 
-def trace_inputs(scene, frame: int, dev):
+def trace_inputs(scene, w: int, h: int, frame: int, dev):
     """(params (1, 18), frames (1,)) for frame ``frame`` of a scene."""
-    params = ray_params(scene.default_pose, HI_W, HI_H, frame)[None]
+    params = ray_params(scene.default_pose, w, h, frame)[None]
     return (params.contiguous(),
             torch.tensor([frame], dtype=torch.int32, device=dev))
 
 
-def post_inputs(packed, dev, cfg=DEFAULT_CONFIG):
-    """Traced cornell planes for frames 3 and 2 plus a seeded history."""
-    scene = packed.scene
-    cur = trace_kernel.trace_planes(packed, *trace_inputs(scene, 3, dev), 0,
-                                    HI_W, HI_H, cfg)
-    prev = trace_kernel.trace_planes(packed, *trace_inputs(scene, 2, dev), 0,
-                                     HI_W, HI_H, cfg)
+def kernel_ms(fn, reps: int, launches: int = 1) -> float:
+    """Device time of one call of a wrapper that launches ``launches``
+    kernels: the mean duration of the launches ``device_ms`` records over
+    ``reps`` calls, times ``launches`` (the profiler can lose a launch's
+    record)."""
+    ms, ops = device_ms(fn, reps)
+    assert 0 < ops <= launches, f"{ops} device operations a call"
+    return ms / ops * launches
+
+
+def post_inputs(packed, w: int, h: int, dev, cfg=DEFAULT_CONFIG):
+    """The post kernel's inputs on traced planes of ``packed``'s scene:
+    frames 3 and 2 at w x h, a seeded history, history valid, no reset,
+    exposure 0.8."""
+    cur, prev = (trace_kernel.trace_planes(
+        packed, *trace_inputs(packed.scene, w, h, f, dev), 0, w, h, cfg)
+        for f in (3, 2))
     rs = np.random.RandomState(0)
     hist = torch.from_numpy(
         (cur[0:3].cpu().numpy()
-         * rs.uniform(0.8, 1.25, (3, HI_H, HI_W))).astype(np.float32)).to(dev)
+         * rs.uniform(0.8, 1.25, (3, h, w))).astype(np.float32)).to(dev)
     valid = torch.ones((), dtype=torch.bool, device=dev)
     reset = torch.zeros((), dtype=torch.bool, device=dev)
     ae = torch.full((), 0.8, dtype=torch.float32, device=dev)
@@ -263,7 +279,8 @@ def main() -> int:
     for name in TRACE_SCENES:
         packed = trace_kernel.pack_scene(SCENE_BUILDERS[name]().to(dev))
         packs[name] = packed
-        params, frames = trace_inputs(packed.scene, TRACE_FRAME, dev)
+        params, frames = trace_inputs(packed.scene, HI_W, HI_H, TRACE_FRAME,
+                                      dev)
         got = trace_kernel.trace_planes(packed, params, frames, 0, HI_W,
                                         HI_H, cfg)
         torch.cuda.synchronize()
@@ -274,16 +291,18 @@ def main() -> int:
           f"{json.dumps(trace_err)}", flush=True)
 
     # ---- 4. post kernel vs plain -----------------------------------------
-    inputs = post_inputs(packs["cornell"], dev, cfg)
-    post_err = {}
-    for fuse_tail in (True, False):
-        got = post_kernel.post(*inputs, cfg, 2, fuse_tail)
-        torch.cuda.synchronize()
-        ref = post_kernel.post_plain(*inputs, cfg, 2, fuse_tail)
-        post_err[f"fuse_tail={fuse_tail}"] = post_contract(
-            [_np(x) for x in got], [_np(x) for x in ref])
-    print(f"phase 4 post kernel vs plain at {HI_W}x{HI_H}: "
-          f"{json.dumps(post_err)}", flush=True)
+    post_err, post_in = {}, {}
+    for w, h in ((HI_W, HI_H), (DRAGON_W, DRAGON_H * 2)):
+        post_in[w, h] = inputs = post_inputs(packs["cornell"], w, h, dev, cfg)
+        for fuse_tail in (True, False):
+            got = post_kernel.post(*inputs, cfg, 2, fuse_tail)
+            torch.cuda.synchronize()
+            ref = post_kernel.post_plain(*inputs, cfg, 2, fuse_tail)
+            post_err[f"{w}x{h} fuse_tail={fuse_tail}"] = post_contract(
+                [_np(x) for x in got], [_np(x) for x in ref])
+    inputs = post_in[HI_W, HI_H]
+    print(f"phase 4 post kernel vs plain: {json.dumps(post_err)}",
+          flush=True)
 
     # ---- 5. goldens on the card ------------------------------------------
     goldens = np.load(os.path.join(ROOT, "tests", "goldens.npz"))
@@ -341,14 +360,26 @@ def main() -> int:
 
     # Per-kernel times at the main path's shapes, kernel beside plain.
     packed = rk.packed
-    params, frames = trace_inputs(packed.scene, TRACE_FRAME, dev)
-    t_k2 = cuda_ms(lambda: trace_kernel.trace_planes(
-        packed, params, frames, 0, HI_W, HI_H, cfg), 100)
+    params, frames = trace_inputs(packed.scene, HI_W, HI_H, TRACE_FRAME, dev)
+
+    def k2():
+        return trace_kernel.trace_planes(packed, params, frames, 0, HI_W,
+                                         HI_H, cfg)
+
+    def k1(w=HI_W, h=HI_H):
+        return post_kernel.post(*post_in[w, h], cfg, 2, True)
+
+    t_k2 = cuda_ms(k2, 100)
+    d_k2 = kernel_ms(k2, 100)
     t_k2p = cuda_ms(lambda: trace_kernel.trace_planes_plain(
         packed.scene, params[0], TRACE_FRAME, HI_W, HI_H, cfg), 5, 1)
-    t_k1 = cuda_ms(lambda: post_kernel.post(*inputs, cfg, 2, True), 100)
+    t_k1 = cuda_ms(k1, 100)
+    d_k1 = kernel_ms(k1, 100)
     t_k1p = cuda_ms(lambda: post_kernel.post_plain(*inputs, cfg, 2, True),
                     10, 2)
+    dw, dh = DRAGON_W, DRAGON_H * 2
+    t_k1d = cuda_ms(lambda: k1(dw, dh), 100)
+    d_k1d = kernel_ms(lambda: k1(dw, dh), 100)
     # Least times: K2 counts only its ray-primitive tests (this frame's
     # rays_traced x valid primitive rows), K1 its per-pixel stencil work;
     # bytes are the inputs read once and the outputs written once.
@@ -361,18 +392,22 @@ def main() -> int:
                         packed.table.numel() * 4 + k2_out.numel() * 4)
     n_pix = HI_W * HI_H
     k1_bound = roofline(n_pix * K1_OPS, K1_PLANES * n_pix * 4)
-    print(f"phase 6c {card} per kernel at {HI_W}x{HI_H}: trace kernel "
-          f"{t_k2:.4f} ms vs plain {t_k2p:.3f} ms, bound {k2_bound[0]:.5f} ms "
-          f"by {k2_bound[1]} ({k2_rays} rays x {n_prims} primitives), share "
-          f"{k2_bound[0] / t_k2:.2%}; post kernel {t_k1:.4f} ms vs plain "
-          f"{t_k1p:.3f} ms, bound {k1_bound[0]:.5f} ms by {k1_bound[1]}, "
-          f"share {k1_bound[0] / t_k1:.2%}", flush=True)
+    k1d_bound = roofline(dw * dh * K1_OPS, K1_PLANES * dw * dh * 4)
+    print(f"phase 6c {card} per kernel at {HI_W}x{HI_H} (ms per call: "
+          f"device time | CUDA events; share of the bound by device time): "
+          f"trace kernel {d_k2:.4f} | {t_k2:.4f} vs plain {t_k2p:.3f} ms, "
+          f"bound {k2_bound[0]:.5f} ms by {k2_bound[1]} ({k2_rays} rays x "
+          f"{n_prims} primitives), share {k2_bound[0] / d_k2:.2%}; post "
+          f"kernel {d_k1:.4f} | {t_k1:.4f} vs plain {t_k1p:.3f} ms, bound "
+          f"{k1_bound[0]:.5f} ms by {k1_bound[1]}, share "
+          f"{k1_bound[0] / d_k1:.2%}; post kernel at {dw}x{dh} {d_k1d:.4f} | "
+          f"{t_k1d:.4f}, bound {k1d_bound[0]:.5f} ms by {k1d_bound[1]}, "
+          f"share {k1d_bound[0] / d_k1d:.2%}", flush=True)
 
     # ---- 7. the cluster kernel vs plain on the dragon's sweeps -----------
     t0 = time.perf_counter()
     dragon = SCENE_BUILDERS["dragon"]().to(dev)
     build_s = time.perf_counter() - t0
-    dw, dh = DRAGON_W, DRAGON_H * 2
     d_params = ray_params(dragon.default_pose, dw, dh, TRACE_FRAME)[None]
 
     def dragon_frame(c):
@@ -462,20 +497,26 @@ def main() -> int:
     # K3 on each sweep of the frame (phase 7's inputs), with its least time.
     k3_sweeps = []
     for i, (args, _) in enumerate(calls):
-        ms = cuda_ms(lambda: cluster_kernel.trace_tiles(*args), 20)
+        ev = cuda_ms(lambda: cluster_kernel.trace_tiles(*args), 20)
+        # init, sweep (where a list has entries) and epilogue kernels
+        ms = kernel_ms(lambda: cluster_kernel.trace_tiles(*args), 20,
+                       3 if sweep_err[i]["entries"] else 2)
         plain = cuda_ms(lambda: cluster_kernel.trace_tiles_plain(*args), 2, 1)
         work = k3_work(args, refs[i])
         k3_sweeps.append(dict(
             sweep=i, set=sets[id(args[3])], any_hit=bool(args[5]), ms=ms,
-            plain_ms=plain, entries=sweep_err[i]["entries"],
-            share=work["bound_ms"] / ms, **work))
+            event_ms=ev, plain_ms=plain,
+            entries=sweep_err[i]["entries"], share=work["bound_ms"] / ms,
+            **work))
     t_k3 = sum(x["ms"] for x in k3_sweeps)
+    e_k3 = sum(x["event_ms"] for x in k3_sweeps)
     t_k3p = sum(x["plain_ms"] for x in k3_sweeps)
     k3_bound = sum(x["bound_ms"] for x in k3_sweeps)
     print(f"phase 9c {card} cluster kernel on the {len(k3_sweeps)} sweeps of "
-          f"the dragon frame: {t_k3:.4f} ms vs plain {t_k3p:.3f} ms, bound "
-          f"{k3_bound:.5f} ms, share {k3_bound / t_k3:.2%}; per sweep "
-          f"{json.dumps(k3_sweeps)}", flush=True)
+          f"the dragon frame (device time | CUDA events): {t_k3:.4f} | "
+          f"{e_k3:.4f} ms vs plain {t_k3p:.3f} ms, bound {k3_bound:.5f} ms, "
+          f"share {k3_bound / t_k3:.2%}; per sweep {json.dumps(k3_sweeps)}",
+          flush=True)
 
     print(json.dumps({"kernels": [
         {"name": "trace", "route": "cuda",
@@ -484,7 +525,8 @@ def main() -> int:
          "replaces": "yetanotherconsolegameengine_tpu/ops/pallas_trace.py:1049",
          "launches": launches["trace"],
          "max_abs_err": max(e["radiance_abs"] for e in trace_err.values()),
-         "ms": t_k2, "plain_ms": t_k2p, "bound_ms": k2_bound[0],
+         "ms": d_k2, "event_ms": t_k2, "plain_ms": t_k2p,
+         "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
         {"name": "post", "route": "cuda",
          "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
@@ -492,14 +534,16 @@ def main() -> int:
          "replaces": "yetanotherconsolegameengine_tpu/ops/pallas_post.py:434",
          "launches": launches["post"],
          "max_abs_err": max(e["rgb"] for e in post_err.values()),
-         "ms": t_k1, "plain_ms": t_k1p, "bound_ms": k1_bound[0],
+         "ms": d_k1, "event_ms": t_k1, "plain_ms": t_k1p,
+         "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "clusters", "route": "cuda",
          "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
                    "cluster_kernel.cu",
          "replaces": "yetanotherconsolegameengine_tpu/ops/mesh_clusters.py:557",
          "launches": d_launches["clusters"], "max_abs_err": k3_err,
-         "ms": t_k3, "plain_ms": t_k3p, "bound_ms": k3_bound,
+         "ms": t_k3, "event_ms": e_k3, "plain_ms": t_k3p,
+         "bound_ms": k3_bound,
          "bound_by": "operations" if all(
              x["bound_by"] == "operations" for x in k3_sweeps) else "bytes",
          "library_ms": None},

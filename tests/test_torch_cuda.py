@@ -18,6 +18,7 @@ from yetanotherconsolegameengine_tpu_torch.ops import (cluster_kernel, kernels,
                                                        mesh_clusters,
                                                        post_kernel,
                                                        trace_kernel)
+from yetanotherconsolegameengine_tpu_torch.ops.trace import stack_slots
 from yetanotherconsolegameengine_tpu_torch.render.renderer import (
     RaytraceRenderer)
 from yetanotherconsolegameengine_tpu_torch.scene.builders import SCENE_BUILDERS
@@ -79,6 +80,135 @@ def test_post_kernel_matches_plain(dev, fuse_tail):
     ref = post_kernel.post_plain(*args)
     np_ = lambda xs: [None if x is None else x.cpu().numpy() for x in xs]
     post_contract(np_(got), np_(ref))
+
+
+def _post_planes(w, h, seed):
+    """Seeded (12, h, w) current and previous G-buffers (~10% sky with INF
+    depth, the previous frame moved a little) and a history."""
+    rs = np.random.RandomState(seed)
+
+    def gbuf(base=None):
+        if base is None:
+            sky = rs.uniform(size=(h, w)) < 0.1
+            rad = np.exp(rs.normal(-1.5, 1.0, (3, h, w)))
+            alb = rs.uniform(0.05, 0.95, (3, h, w))
+            n = rs.normal(size=(3, h, w)) + np.float32([0, 2, 0])[:, None, None]
+            depth = rs.uniform(1.0, 12.0, (h, w))
+        else:
+            sky = np.where(rs.uniform(size=(h, w)) < 0.03, base[3] < 0.5,
+                           base[3] > 0.5)
+            rad = base[0:3] * rs.uniform(0.7, 1.4, (3, h, w))
+            alb = base[4:7]
+            n = base[7:10] + rs.normal(0.0, 0.15, (3, h, w))
+            depth = np.where(base[10] < 1e30, base[10], 5.0) \
+                * rs.uniform(0.97, 1.08, (h, w))
+        g = np.zeros((12, h, w), np.float32)
+        g[0:3], g[4:7], g[3] = rad, alb, sky
+        g[7:10] = n / np.linalg.norm(n, axis=0, keepdims=True)
+        g[10] = np.where(sky, 3.0e38, depth)
+        g[4:10, sky] = 0.0
+        return g
+
+    prev = gbuf()
+    cur = gbuf(prev)
+    hist = (prev[0:3] * rs.uniform(0.8, 1.25, (3, h, w))).astype(np.float32)
+    return cur, prev, hist
+
+
+@pytest.mark.parametrize("case", ["history", "no_history", "reset",
+                                  "no_auto_exposure"])
+@pytest.mark.parametrize("w,h,fuse_tail,step", [
+    (37, 23, True, 2), (160, 180, True, 2), (240, 270, True, 2),
+    (320, 360, False, 4), (1280, 720, True, 2)])
+def test_post_kernel_sizes_and_flags(dev, w, h, fuse_tail, step, case):
+    """The kernel against post_plain at odd sizes (tile and halo edges at
+    odd places), the ss=2 frame (no tail, sample step 4) and a frame of
+    3,600 tiles, more than one co-resident grid holds."""
+    cur, prev, hist = _post_planes(w, h, w + h)
+    cfg = DEFAULT_CONFIG
+    if case == "no_auto_exposure":
+        cfg = dataclasses.replace(cfg, auto_exposure=False)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    flag = lambda v: torch.tensor(v, dtype=torch.bool, device=dev)
+    args = (t(cur), t(prev), t(hist), flag(case != "no_history"),
+            flag(case == "reset"), torch.full((), 0.8, device=dev), cfg, step,
+            fuse_tail)
+    before = kernels.LAUNCHES["post"]
+    got = post_kernel.post(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["post"] == before + 1
+    ref = post_kernel.post_plain(*args)
+    np_ = lambda xs: [None if x is None else x.cpu().numpy() for x in xs]
+    post_contract(np_(got), np_(ref))
+    if case == "no_auto_exposure":
+        assert float(got[3]) == float(np.float32(0.8))
+
+
+@pytest.mark.parametrize("iterations,clamp_radius", [(4, 1), (5, 1), (3, 77)])
+def test_post_kernel_wide_halos_match_plain(dev, iterations, clamp_radius):
+    """Phases whose window does not fit in shared memory read their taps
+    from global memory: a fifth pass (+-32 halo: 80x80 cells of 48 bytes)
+    and a TAA clamp radius of 77 (170x170 cells of 8 bytes); four passes
+    stage all of them in 110 KB."""
+    cur, prev, hist = _post_planes(70, 45, iterations)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    cfg = dataclasses.replace(DEFAULT_CONFIG, atrous_iterations=iterations,
+                              taa_clamp_radius=clamp_radius)
+    args = (t(cur), t(prev), t(hist),
+            torch.ones((), dtype=torch.bool, device=dev),
+            torch.zeros((), dtype=torch.bool, device=dev),
+            torch.full((), 0.8, device=dev), cfg, 2, True)
+    got = post_kernel.post(*args)
+    torch.cuda.synchronize()
+    ref = post_kernel.post_plain(*args)
+    np_ = lambda xs: [None if x is None else x.cpu().numpy() for x in xs]
+    post_contract(np_(got), np_(ref))
+
+
+TRACE_SCENES = ("test", "cornell", "mirror_spheres", "primitives", "boxes",
+                "glass")
+
+
+@pytest.mark.parametrize("w,h", [(160, 180), (53, 37)])
+@pytest.mark.parametrize("name", TRACE_SCENES)
+def test_trace_kernel_matches_plain_on_primitive_scenes(dev, name, w, h):
+    """The six texture-free primitive scenes, at the headline size and an
+    odd one, under the trace contract."""
+    packed = trace_kernel.pack_scene(SCENE_BUILDERS[name]().to(dev))
+    params = ray_params(packed.scene.default_pose, w, h, 3)[None]
+    frames = torch.tensor([3], dtype=torch.int32, device=dev)
+    got = trace_kernel.trace_planes(packed, params.contiguous(), frames, 0, w,
+                                    h, DEFAULT_CONFIG)
+    torch.cuda.synchronize()
+    ref = trace_kernel.trace_planes_plain(packed.scene, params[0], 3, w, h,
+                                          DEFAULT_CONFIG)
+    trace_contract(got.cpu().numpy(), ref.cpu().numpy())
+
+
+def test_trace_kernel_deepest_stack(dev):
+    """glass with a deep path stack: 15 mirror bounces give
+    path_stack_size = 16 slots (90 KB of shared stack for 128 rays)."""
+    cfg = dataclasses.replace(DEFAULT_CONFIG, max_mirror_bounces=15)
+    assert stack_slots(cfg) == cfg.path_stack_size == 16
+    packed = trace_kernel.pack_scene(SCENE_BUILDERS["glass"]().to(dev))
+    params = ray_params(packed.scene.default_pose, W, H, 3)[None]
+    frames = torch.tensor([3], dtype=torch.int32, device=dev)
+    got = trace_kernel.trace_planes(packed, params.contiguous(), frames, 0, W,
+                                    H, cfg)
+    torch.cuda.synchronize()
+    ref = trace_kernel.trace_planes_plain(packed.scene, params[0], 3, W, H,
+                                          cfg)
+    trace_contract(got.cpu().numpy(), ref.cpu().numpy())
+
+
+def test_trace_kernel_raises_on_a_table_too_large(dev):
+    packed = trace_kernel.pack_scene(SCENE_BUILDERS["cornell"]().to(dev))
+    big = dataclasses.replace(packed, table=torch.zeros(60_000, device=dev))
+    params = ray_params(packed.scene.default_pose, W, H, 1)[None]
+    frames = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="240000 bytes"):
+        trace_kernel.trace_planes(big, params.contiguous(), frames, 0, W, H,
+                                  DEFAULT_CONFIG)
 
 
 def test_renderer_kernels_match_goldens(dev):

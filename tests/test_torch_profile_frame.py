@@ -12,7 +12,7 @@ def test_union_counts_overlaps_once():
 
 
 def test_busy_by_stage_takes_the_innermost_stage():
-    k3, cull, ic = (pf.STAGES[i][1] for i in range(3))
+    k3, cull, ic = (pf.STAGES[i][1] for i in range(1, 4))
     spans = {ic: [(0, 100)], cull: [(10, 30)], k3: [(40, 60)]}
     ops = [(12, 20, "cull"), (40, 50, "k3"), (70, 90, "resolve"),
            (200, 210, "shade")]
@@ -24,5 +24,5 @@ def test_busy_by_stage_takes_the_innermost_stage():
 def test_refuses_to_run_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
-    assert pf.main() != 0
+    assert pf.main([]) != 0
     assert not list(tmp_path.iterdir())

@@ -1,30 +1,37 @@
 // Path-trace kernel for primitive-table scenes (sm_90a).
 //
 // Replaces the Pallas megakernel yetanotherconsolegameengine_tpu/ops/
-// pallas_trace.py::build_kernel (its pallas_call at :1049). One thread per
-// pixel generates its jittered primary ray from one row of 18 ray_params
-// scalars and the frame index, seeds its SplitMix64 state, and runs the
-// whole path tree: the mirror/refraction stack, Oren-Nayar direct light
-// with shadow rays (tinted transmittance through transparent hits), one
-// diffuse bounce, the sky gradient and emission. It writes 12 planes:
-// radiance rgb, sky, albedo rgb, normal xyz, depth and the lane's ray count.
+// pallas_trace.py::build_kernel (its pallas_call at :1049). Each pixel
+// generates its jittered primary ray from one row of 18 ray_params scalars
+// and the frame index, seeds its SplitMix64 state, and runs the whole path
+// tree: the mirror/refraction stack, Oren-Nayar direct light with shadow
+// rays (tinted transmittance through transparent hits), one diffuse bounce,
+// the sky gradient and emission. It writes 12 planes: radiance rgb, sky,
+// albedo rgb, normal xyz, depth and the pixel's ray count.
 //
-// Design against what bounds it on this card: the work is divergent
-// scalar float math per ray over tens of table rows, so it is bound by
-// instruction issue and by divergence between the lanes of a warp, not by
-// memory (the scene is a few KB and stays in L1; the output is 48 B/pixel).
-// The TPU kernel baked the scene into the program as immediates and
-// unrolled every row loop (one compile per scene, and an unroll budget);
-// here the tables are one packed f32 buffer read at run time through the
-// read-only cache, with an int header of row counts and offsets, so a new
-// scene is a new buffer, not a new build. The path stack is per-thread
-// local memory of PATH_STACK slots and is only touched by transparent hits.
+// What bounds it on this card: divergent scalar float math per ray (IEEE
+// divisions and square roots in dependent chains under -fmad=false) over
+// the rows of every table, so instruction latency and issue, not memory
+// (the scene is a few KB; the output is 48 B/pixel). The design:
+//
+// * One thread a ray: a thread walks the rows of every table in table
+//   order (spheres, boxes, rects, cylinders, disks, planes, triangles)
+//   with the strict t < best of the serial walk from t = INF. Lane groups
+//   of 2, 4 and 8 threads a ray, reducing (t, table position) by
+//   shuffles, were measured on the shipped scenes (4 and 8 rows) and lost
+//   to one thread a ray on every one of them, since every lane repeats
+//   the ray's shading (PERF.md § 6).
+// * Shared memory: each block stages the packed scene table and its header
+//   once with coalesced loads; every row read after that is a shared load.
+//   The path stack lives there too, stack_slots(cfg) entries of 11 words
+//   per ray (the wrapper checks that table + stack fit), in place of a
+//   fixed 16-entry stack in local memory.
 //
 // Arithmetic follows yetanotherconsolegameengine_tpu_torch/ops/trace.py
-// operation by operation (dot products summed x + y + z, the same
-// selects and clamps, the same winner order across tables), and the build
-// uses -fmad=false, so the kernel agrees with the plain version to a few
-// float ulps; the RNG is the exact SplitMix64 sequence.
+// operation by operation (dot products summed x + y + z, the same selects
+// and clamps, the same winner order across tables), and the build uses
+// -fmad=false, so the kernel agrees with the plain version to a few float
+// ulps; the RNG is the exact SplitMix64 sequence.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,7 +57,12 @@ constexpr int W_LIGHT = 7;   // pos3 color3 intensity
 constexpr int W_MAT = 18;    // albedo3 emission3 transmission3 albedo2_3
                              // specular reflectivity transparency ior
                              // proc proc_scale
-constexpr int PATH_STACK = 16;
+// Shared memory (floats): the header padded to HDR_PAD, the table, then
+// per ray stack_slots entries of W_STACK words (o3 d3 beta3 mirror
+// diffuse). Keep in sync with ops/trace_kernel.py::shared_bytes.
+constexpr int THREADS = 128;
+constexpr int HDR_PAD = 32;
+constexpr int W_STACK = 11;
 constexpr float INF = 3.0e38f;
 constexpr float EPS = 1e-4f;
 constexpr float INV_PI = 0.318309886183790671538f;
@@ -83,6 +95,11 @@ __device__ __forceinline__ float safe_den(float den, float eps) {
   return fabsf(den) < eps ? (den < 0.0f ? -eps : eps) : den;
 }
 __device__ __forceinline__ V3 ld3(const float* p) { return {p[0], p[1], p[2]}; }
+// Component k of v by selects (a dynamically indexed local array would
+// live in local memory).
+__device__ __forceinline__ float comp(V3 v, int k) {
+  return k == 0 ? v.x : (k == 1 ? v.y : v.z);
+}
 
 // ---- SplitMix64 (core/u64.py, core/sampler.py) ----------------------------
 __device__ __forceinline__ unsigned long long splitmix64(unsigned long long z) {
@@ -108,11 +125,17 @@ __device__ unsigned long long per_frame_seed(unsigned int px, unsigned int py,
 __device__ __forceinline__ float frac(float v) { return v - floorf(v); }
 
 // ---- nearest hit over every table (ops/intersect.py) ----------------------
-struct Hit { float t; V3 n; int mat; bool hit; };
+// Strict t < b.t keeps the first row of least t, as the serial walk.
+struct Hit {
+  float t = INF; V3 n = {0.0f, 0.0f, 0.0f}; int mat = 0; bool hit = false;
+  __device__ __forceinline__ void take(float t_, V3 n_, int mat_) {
+    t = t_; n = n_; mat = mat_; hit = true;
+  }
+};
 
-__device__ void intersect(const float* __restrict__ sc, const int* hdr,
-                          V3 o, V3 d, float tmin, float tmax, Hit& h) {
-  h.t = INF; h.n = v3(0.f, 0.f, 0.f); h.mat = 0; h.hit = false;
+__device__ Hit intersect(const float* __restrict__ sc, const int* __restrict__ hdr,
+                         V3 o, V3 d, float tmin, float tmax) {
+  Hit b;
   // Spheres: near root if in range, else far; outward normal.
   for (int i = 0; i < hdr[H_NSPH]; ++i) {
     const float* r = sc + hdr[H_OSPH] + i * W_SPH;
@@ -127,10 +150,10 @@ __device__ void intersect(const float* __restrict__ sc, const int* hdr,
     bool near_ok = tn >= tmin && tn <= tmax;
     bool far_ok = tf >= tmin && tf <= tmax;
     float t = near_ok ? tn : tf;
-    if (disc >= 0.0f && (near_ok || far_ok) && t < h.t) {
+    if (disc >= 0.0f && (near_ok || far_ok) && t < b.t) {
       float inv_r = 1.0f / fmaxf(rad, 1e-20f);
       V3 p = add(o, scale(d, t));
-      h.t = t; h.n = scale(sub(p, c), inv_r); h.mat = (int)r[4]; h.hit = true;
+      b.take(t, scale(sub(p, c), inv_r), (int)r[4]);
     }
   }
   // Boxes: slab test, entry face else exit face, normal against the ray.
@@ -138,10 +161,10 @@ __device__ void intersect(const float* __restrict__ sc, const int* hdr,
     float inv_d[3] = {1.0f / safe_den(d.x, 1e-12f), 1.0f / safe_den(d.y, 1e-12f),
                       1.0f / safe_den(d.z, 1e-12f)};
     float oo[3] = {o.x, o.y, o.z};
-    float dd[3] = {d.x, d.y, d.z};
     for (int i = 0; i < hdr[H_NBOX]; ++i) {
       const float* r = sc + hdr[H_OBOX] + i * W_BOX;
       float tn[3], tf[3];
+#pragma unroll
       for (int k = 0; k < 3; ++k) {
         float ta = (r[k] - oo[k]) * inv_d[k];
         float tc = (r[3 + k] - oo[k]) * inv_d[k];
@@ -157,12 +180,12 @@ __device__ void intersect(const float* __restrict__ sc, const int* hdr,
       bool enter_ok = t0 <= t1 && t0 >= tmin && t0 <= tmax;
       bool exit_ok = t0 <= t1 && t1 >= tmin && t1 <= tmax;
       float t = enter_ok ? t0 : t1;
-      if ((enter_ok || exit_ok) && t < h.t) {
+      if ((enter_ok || exit_ok) && t < b.t) {
         int ax = enter_ok ? ax_in : ax_out;
-        float sg = dd[ax] < 0.0f ? 1.0f : -1.0f;
-        h.t = t;
-        h.n = v3(ax == 0 ? sg : 0.0f, ax == 1 ? sg : 0.0f, ax == 2 ? sg : 0.0f);
-        h.mat = (int)r[6]; h.hit = true;
+        float sg = comp(d, ax) < 0.0f ? 1.0f : -1.0f;
+        b.take(t,
+               v3(ax == 0 ? sg : 0.0f, ax == 1 ? sg : 0.0f, ax == 2 ? sg : 0.0f),
+               (int)r[6]);
       }
     }
   }
@@ -170,22 +193,19 @@ __device__ void intersect(const float* __restrict__ sc, const int* hdr,
   for (int i = 0; i < hdr[H_NRECT]; ++i) {
     const float* r = sc + hdr[H_ORECT] + i * W_RECT;
     int a = (int)r[0];
-    float oo[3] = {o.x, o.y, o.z};
-    float dd[3] = {d.x, d.y, d.z};
     int fa = a == 0 ? 1 : 0;
     int fb = a == 2 ? 1 : 2;
-    float d_ax = dd[a];
+    float d_ax = comp(d, a);
     float ad = fabsf(d_ax);
     float safe = ad < 1e-8f ? (d_ax < 0.0f ? -1e-8f : 1e-8f) : d_ax;
-    float t = (r[1] - oo[a]) / safe;
-    float pu = oo[fa] + t * dd[fa];
-    float pv = oo[fb] + t * dd[fb];
+    float t = (r[1] - comp(o, a)) / safe;
+    float pu = comp(o, fa) + t * comp(d, fa);
+    float pv = comp(o, fb) + t * comp(d, fb);
     if (ad >= 1e-8f && t >= tmin && t <= tmax && pu >= r[2] && pu <= r[3] &&
-        pv >= r[4] && pv <= r[5] && t < h.t) {
+        pv >= r[4] && pv <= r[5] && t < b.t) {
       float sg = d_ax < 0.0f ? 1.0f : -1.0f;
-      h.t = t;
-      h.n = v3(a == 0 ? sg : 0.0f, a == 1 ? sg : 0.0f, a == 2 ? sg : 0.0f);
-      h.mat = (int)r[6]; h.hit = true;
+      b.take(t, v3(a == 0 ? sg : 0.0f, a == 1 ? sg : 0.0f, a == 2 ? sg : 0.0f),
+             (int)r[6]);
     }
   }
   // Y-axis capped cylinders: near side root, else far; closer caps win.
@@ -220,14 +240,14 @@ __device__ void intersect(const float* __restrict__ sc, const int* hdr,
     }
     bool is_top = cap_ok[0] && !cap_ok[1];
     bool is_bot = cap_ok[1];
-    if ((v1 || v2 || is_top || is_bot) && t_cur < h.t) {
+    if ((v1 || v2 || is_top || is_bot) && t_cur < b.t) {
       float inv_r = 1.0f / fmaxf(rad, 1e-20f);
       float px = o.x + t_cur * d.x, pz = o.z + t_cur * d.z;
       V3 n = (is_top || is_bot)
                  ? v3(0.0f, is_top ? 1.0f : -1.0f, 0.0f)
                  : v3((px - cx) * inv_r, 0.0f, (pz - cz) * inv_r);
       if (dot(n, d) >= 0.0f) n = neg(n);
-      h.t = t_cur; h.n = n; h.mat = (int)r[6]; h.hit = true;
+      b.take(t_cur, n, (int)r[6]);
     }
   }
   // Disks (XZ-distance radius test, as the reference).
@@ -242,10 +262,8 @@ __device__ void intersect(const float* __restrict__ sc, const int* hdr,
     float t = (nd_c - no) / safe;
     float ex = o.x + t * d.x - c.x, ez = o.z + t * d.z - c.z;
     if (ad >= 1e-6f && t >= tmin && t <= tmax && ex * ex + ez * ez <= r[6] * r[6] &&
-        t < h.t) {
-      h.t = t; h.n = dot(nrm, d) < 0.0f ? nrm : neg(nrm);
-      h.mat = (int)r[7]; h.hit = true;
-    }
+        t < b.t)
+      b.take(t, dot(nrm, d) < 0.0f ? nrm : neg(nrm), (int)r[7]);
   }
   // Infinite planes.
   for (int i = 0; i < hdr[H_NPLANE]; ++i) {
@@ -254,10 +272,8 @@ __device__ void intersect(const float* __restrict__ sc, const int* hdr,
     float denom = dot(d, nrm);
     float no = dot(o, nrm);
     float t = (r[3] - no) / safe_den(denom, 1e-12f);
-    if (fabsf(denom) >= 1e-6f && t >= tmin && t <= tmax && t < h.t) {
-      h.t = t; h.n = dot(nrm, d) < 0.0f ? nrm : neg(nrm);
-      h.mat = (int)r[4]; h.hit = true;
-    }
+    if (fabsf(denom) >= 1e-6f && t >= tmin && t <= tmax && t < b.t)
+      b.take(t, dot(nrm, d) < 0.0f ? nrm : neg(nrm), (int)r[4]);
   }
   // Double-sided Moller-Trumbore triangles.
   for (int i = 0; i < hdr[H_NTRI]; ++i) {
@@ -272,11 +288,10 @@ __device__ void intersect(const float* __restrict__ sc, const int* hdr,
     float v = dot(d, q) * inv_det;
     float t = dot(e2, q) * inv_det;
     if (fabsf(det) >= 1e-8f && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-        u + v <= 1.0f && t >= tmin && t <= tmax && t < h.t) {
-      h.t = t; h.n = dot(nrm, d) < 0.0f ? nrm : neg(nrm);
-      h.mat = (int)r[12]; h.hit = true;
-    }
+        u + v <= 1.0f && t >= tmin && t <= tmax && t < b.t)
+      b.take(t, dot(nrm, d) < 0.0f ? nrm : neg(nrm), (int)r[12]);
   }
+  return b;
 }
 
 // Oren-Nayar BRDF clipped to [0, 1] per channel (ops/trace.py oren_nayar).
@@ -308,16 +323,38 @@ struct TraceArgs {
   unsigned long long salt;
 };
 
-__global__ void __launch_bounds__(128)
-trace_kernel(const float* __restrict__ sc, const int* __restrict__ hdr_g,
-             const float* __restrict__ params_all, const int* __restrict__ frames,
-             int row, float* __restrict__ out, int width, int height,
-             TraceArgs cfg) {
-  int pix = blockIdx.x * blockDim.x + threadIdx.x;
+// One path-stack entry in shared memory.
+struct Frame { V3 o, d, beta; int mirror, diffuse; };
+
+__device__ __forceinline__ void push(float* st, int sp, const Frame& f) {
+  float* e = st + sp * W_STACK;
+  e[0] = f.o.x; e[1] = f.o.y; e[2] = f.o.z;
+  e[3] = f.d.x; e[4] = f.d.y; e[5] = f.d.z;
+  e[6] = f.beta.x; e[7] = f.beta.y; e[8] = f.beta.z;
+  e[9] = __int_as_float(f.mirror); e[10] = __int_as_float(f.diffuse);
+}
+__device__ __forceinline__ Frame pop(const float* st, int sp) {
+  const float* e = st + sp * W_STACK;
+  return {ld3(e), ld3(e + 3), ld3(e + 6), __float_as_int(e[9]), __float_as_int(e[10])};
+}
+
+__global__ void __launch_bounds__(THREADS)
+trace_kernel(const float* __restrict__ sc_g, const int* __restrict__ hdr_g,
+             int table_len, const float* __restrict__ params_all,
+             const int* __restrict__ frames, int row, float* __restrict__ out,
+             int width, int height, TraceArgs cfg) {
+  extern __shared__ float smem[];
+  int* hdr = reinterpret_cast<int*>(smem);
+  float* sc = smem + HDR_PAD;
+  for (int k = threadIdx.x; k < H_LEN; k += THREADS) hdr[k] = hdr_g[k];
+  for (int k = threadIdx.x; k < table_len; k += THREADS) sc[k] = sc_g[k];
+  __syncthreads();
+
+  int pix = blockIdx.x * THREADS + threadIdx.x;
   int n_pix = width * height;
   if (pix >= n_pix) return;
-  int hdr[H_LEN];
-  for (int k = 0; k < H_LEN; ++k) hdr[k] = hdr_g[k];
+  float* st = sc + table_len + threadIdx.x * cfg.stack_slots * W_STACK;
+
   const float* p = params_all + row * 18;
   const float* glob = sc + hdr[H_OGLOB];
   V3 amb_rgb = scale(ld3(glob), glob[3]);
@@ -347,13 +384,10 @@ trace_kernel(const float* __restrict__ sc, const int* __restrict__ hdr_g,
   float g_depth = INF, nray = 0.0f;
   int mirror = 0, diffuse = 0, sp = 0;
   bool is_primary = true, primary_hit = false, is_sky = false, g_valid = false;
-  V3 st_o[PATH_STACK], st_d[PATH_STACK], st_beta[PATH_STACK];
-  int st_mirror[PATH_STACK], st_diffuse[PATH_STACK];
 
   for (int round = 0; round < cfg.max_rounds; ++round) {
     nray += 1.0f;
-    Hit h;
-    intersect(sc, hdr, o, d, 1e-3f, INF, h);
+    Hit h = intersect(sc, hdr, o, d, 1e-3f, INF);
     V3 pt = add(o, scale(d, h.t));
     const float* m = sc + hdr[H_OMAT] + h.mat * W_MAT;
     V3 albedo = ld3(m);
@@ -369,9 +403,8 @@ trace_kernel(const float* __restrict__ sc, const int* __restrict__ hdr_g,
       if (is_primary && !primary_hit) { is_sky = true; g_valid = true; }
       // A miss never continues; pop a pending stack item if any.
       if (sp == 0) break;
-      --sp;
-      o = st_o[sp]; d = st_d[sp]; beta = st_beta[sp];
-      mirror = st_mirror[sp]; diffuse = st_diffuse[sp];
+      Frame f = pop(st, --sp);
+      o = f.o; d = f.d; beta = f.beta; mirror = f.mirror; diffuse = f.diffuse;
       continue;
     }
     if (is_primary) {
@@ -404,16 +437,12 @@ trace_kernel(const float* __restrict__ sc, const int* __restrict__ hdr_g,
       float tr_amt = clampf(transparency, 0.0f, 1.0f);
       float t_w = k >= 0.0f ? (1.0f - fres) * tr_amt : 0.0f;
       float r_w = clampf(fres + reflectivity * (1.0f - fres), 0.0f, 1.0f);
-      if (r_w > 0.0f && sp < cfg.stack_slots) {
-        st_o[sp] = add(pt, scale(nl, EPS)); st_d[sp] = refl_dir;
-        st_beta[sp] = scale(mul(beta, albedo), r_w);
-        st_mirror[sp] = mirror + 1; st_diffuse[sp] = diffuse; ++sp;
-      }
-      if (t_w > 0.0f && sp < cfg.stack_slots) {
-        st_o[sp] = sub(pt, scale(nl, EPS)); st_d[sp] = normalize(refr_dir);
-        st_beta[sp] = scale(mul(beta, ld3(m + 6)), t_w);
-        st_mirror[sp] = mirror + 1; st_diffuse[sp] = diffuse; ++sp;
-      }
+      if (r_w > 0.0f && sp < cfg.stack_slots)
+        push(st, sp++, {add(pt, scale(nl, EPS)), refl_dir,
+                        scale(mul(beta, albedo), r_w), mirror + 1, diffuse});
+      if (t_w > 0.0f && sp < cfg.stack_slots)
+        push(st, sp++, {sub(pt, scale(nl, EPS)), normalize(refr_dir),
+                        scale(mul(beta, ld3(m + 6)), t_w), mirror + 1, diffuse});
     }
 
     V3 wo = neg(d);
@@ -436,15 +465,13 @@ trace_kernel(const float* __restrict__ sc, const int* __restrict__ hdr_g,
         float smax = dist - EPS;
         if (hdr[H_BINARY]) {
           nray += 1.0f;
-          Hit sh;
-          intersect(sc, hdr, so, ldir, 1e-3f, smax, sh);
+          Hit sh = intersect(sc, hdr, so, ldir, 1e-3f, smax);
           if (sh.hit) tr = v3(0.0f, 0.0f, 0.0f);
         } else {
           float smin = EPS;
           for (int it = 0; it < cfg.max_refr; ++it) {
             nray += 1.0f;
-            Hit sh;
-            intersect(sc, hdr, so, ldir, smin, smax, sh);
+            Hit sh = intersect(sc, hdr, so, ldir, smin, smax);
             if (!sh.hit) break;
             const float* sm = sc + hdr[H_OMAT] + sh.mat * W_MAT;
             if (sm[14] <= 0.0f) { tr = v3(0.0f, 0.0f, 0.0f); break; }
@@ -495,13 +522,13 @@ trace_kernel(const float* __restrict__ sc, const int* __restrict__ hdr_g,
     }
     // The path ends here: pop a pending stack item if any.
     if (sp == 0) break;
-    --sp;
-    o = st_o[sp]; d = st_d[sp]; beta = st_beta[sp];
-    mirror = st_mirror[sp]; diffuse = st_diffuse[sp];
+    Frame f = pop(st, --sp);
+    o = f.o; d = f.d; beta = f.beta; mirror = f.mirror; diffuse = f.diffuse;
   }
 
   float vals[12] = {rad.x, rad.y, rad.z, is_sky ? 1.0f : 0.0f,
                     g_alb.x, g_alb.y, g_alb.z, g_n.x, g_n.y, g_n.z, g_depth, nray};
+#pragma unroll
   for (int c = 0; c < 12; ++c) out[(size_t)c * n_pix + pix] = vals[c];
 }
 
@@ -513,18 +540,25 @@ const char* yacge_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int yacge_trace_launch(const float* scene, const int* header,
+int yacge_trace_launch(const float* scene, const int* header, int table_len,
                        const float* params_all, const int* frames, int row,
                        float* out, int width, int height, int max_rounds,
                        int max_mirror, int max_refr, int diffuse_bounces,
-                       int stack_slots, float mirror_threshold, float on_a,
-                       float on_b, unsigned long long salt, void* stream) {
+                       int stack_slots, float mirror_threshold,
+                       float on_a, float on_b, unsigned long long salt,
+                       void* stream_ptr) {
   TraceArgs cfg{max_rounds, max_mirror, max_refr, diffuse_bounces, stack_slots,
                 mirror_threshold, on_a, on_b, salt};
+  size_t smem = sizeof(float) * ((size_t)HDR_PAD + table_len +
+                                 (size_t)THREADS * stack_slots * W_STACK);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   int n = width * height;
-  int threads = 128;
-  trace_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      scene, header, params_all, frames, row, out, width, height, cfg);
+  trace_kernel<<<(n + THREADS - 1) / THREADS, THREADS, smem, (cudaStream_t)stream_ptr>>>(
+      scene, header, table_len, params_all, frames, row, out, width, height, cfg);
   return (int)cudaGetLastError();
 }
 

@@ -15,6 +15,8 @@ reads as 3.4e38, the guide depth of the JAX frame step.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..config import RenderConfig
@@ -22,6 +24,8 @@ from . import ansi, atrous, kernels, taa, tonemap
 from .intersect import INF
 
 FAR_DEPTH = 3.4e38
+# Output tiles of csrc/post_kernel.cu (TILE_H, TILE_W), one thread a pixel.
+TILE_H = TILE_W = 16
 
 
 def guide_depth(depth: torch.Tensor) -> torch.Tensor:
@@ -59,12 +63,43 @@ def post_plain(gbuf, prev_gbuf, history, history_valid, force_reset,
             new_ae)
 
 
+def tiles(h: int, w: int) -> tuple:
+    """(rows, columns) of the kernel's output tiles over an (h, w) frame;
+    tile k is row k // columns, column k % columns."""
+    return -(-h // TILE_H), -(-w // TILE_W)
+
+
+def tile_window(k: int, h: int, w: int, halo: int) -> tuple:
+    """Pixels (y0, y1, x0, x1) that tile ``k`` stages for a stencil of
+    reach ``halo``: the tile +- halo, cut to the image."""
+    _, nx = tiles(h, w)
+    ty, tx = divmod(k, nx)
+    return (max(ty * TILE_H - halo, 0), min((ty + 1) * TILE_H + halo, h),
+            max(tx * TILE_W - halo, 0), min((tx + 1) * TILE_W + halo, w))
+
+
+def scratch_floats(h: int, w: int) -> int:
+    """The kernel's scratch: two (rgb, luma) colour planes and the two
+    guide float4 planes per pixel, then two exposure partials per tile."""
+    ny, nx = tiles(h, w)
+    return 16 * h * w + 2 * ny * nx
+
+
+@functools.lru_cache(maxsize=8)
+def _scratch(device: torch.device, stream: int, h: int, w: int):
+    """The kernel's scratch for an (h, w) frame on one stream, kept across
+    calls: a launch writes and reads it and leaves nothing in it, and the
+    launches on one stream run in order. 16-byte aligned for its float4s."""
+    return torch.empty(scratch_floats(h, w), dtype=torch.float32,
+                       device=device)
+
+
 def post(gbuf, prev_gbuf, history, history_valid, force_reset, ae_exposure,
          cfg: RenderConfig, sample_step: int, fuse_tail: bool):
     """Run the post kernel on CUDA tensors (the plain version for CPU
     tensors). ``history_valid`` / ``force_reset`` are 0-d bool tensors and
     ``ae_exposure`` a 0-d f32 tensor; all stay on the device. Returns what
-    ``post_plain`` returns."""
+    ``post_plain`` returns. Raises if its grid cannot be co-resident."""
     if gbuf.device.type == "cpu":
         return post_plain(gbuf, prev_gbuf, history, history_valid,
                           force_reset, ae_exposure, cfg, sample_step,
@@ -77,11 +112,15 @@ def post(gbuf, prev_gbuf, history, history_valid, force_reset, ae_exposure,
     kernels.require(force_reset, "force_reset", torch.bool, ())
     kernels.require(ae_exposure, "ae_exposure", torch.float32, ())
     dev = gbuf.device
-    out = torch.empty((6, h, w), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _scratch(dev, stream, h, w)
+    # One allocation (each costs the host several microseconds) for the six
+    # output planes and the new exposure.
+    buf = torch.empty(6 * h * w + 1, dtype=torch.float32, device=dev)
+    out = buf[:-1].view(6, h, w)
+    new_ae = buf[-1]
     idx = (torch.empty((h, w), dtype=torch.int32, device=dev)
            if fuse_tail else None)
-    new_ae = torch.empty((), dtype=torch.float32, device=dev)
-    scratch = torch.empty((2, 3, h, w), dtype=torch.float32, device=dev)
     lib = kernels.library()
     err = lib.yacge_post_launch(
         gbuf.data_ptr(), prev_gbuf.data_ptr(), history.data_ptr(),
@@ -89,14 +128,22 @@ def post(gbuf, prev_gbuf, history, history_valid, force_reset, ae_exposure,
         ae_exposure.data_ptr(), out.data_ptr(),
         None if idx is None else idx.data_ptr(), new_ae.data_ptr(),
         scratch.data_ptr(), w, h, max(1, cfg.atrous_iterations),
-        int(fuse_tail), min(max(cfg.taa_alpha, 0.0), 1.0),
-        cfg.taa_luminance_pad, max(0, cfg.taa_clamp_radius),
-        1.0 / max(1e-6, cfg.atrous_c_phi), 1.0 / max(1e-6, cfg.atrous_n_phi),
-        1.0 / max(1e-6, cfg.atrous_z_phi), 1.0 / max(1e-6, cfg.atrous_a_phi),
-        max(2, sample_step), int(cfg.auto_exposure), cfg.ae_key, cfg.ae_min,
-        cfg.ae_max, tonemap.ae_rate(cfg), cfg.tone_exposure,
-        1.0 / max(0.1, cfg.tone_gamma), cfg.tone_saturation,
-        cfg.tone_vibrance, torch.cuda.current_stream(dev).cuda_stream)
+        int(fuse_tail), *_scalars(cfg, max(2, sample_step)), stream)
     kernels.check(err, "post kernel")
     kernels.LAUNCHES["post"] += 1
     return out[0:3], out[3:6], idx, new_ae
+
+
+@functools.lru_cache(maxsize=16)
+def _scalars(cfg: RenderConfig, sample_step: int) -> tuple:
+    """The launcher's arguments from ``alpha`` to ``vibrance``, clamped as
+    the plain stages clamp them."""
+    return (min(max(cfg.taa_alpha, 0.0), 1.0), cfg.taa_luminance_pad,
+            max(0, cfg.taa_clamp_radius), 1.0 / max(1e-6, cfg.atrous_c_phi),
+            1.0 / max(1e-6, cfg.atrous_n_phi),
+            1.0 / max(1e-6, cfg.atrous_z_phi),
+            1.0 / max(1e-6, cfg.atrous_a_phi), sample_step,
+            int(cfg.auto_exposure), cfg.ae_key, cfg.ae_min, cfg.ae_max,
+            tonemap.ae_rate(cfg), cfg.tone_exposure,
+            1.0 / max(0.1, cfg.tone_gamma), cfg.tone_saturation,
+            cfg.tone_vibrance)

@@ -30,7 +30,13 @@ from .trace import stack_slots, trace_all
 
 PLANES = ("rad_r", "rad_g", "rad_b", "sky", "alb_r", "alb_g", "alb_b",
           "n_x", "n_y", "n_z", "depth", "rays")
-KERNEL_STACK = 16  # PATH_STACK in csrc/trace_kernel.cu
+# Shared memory of one block of csrc/trace_kernel.cu: the header padded to
+# HDR_PAD words, the packed table, then per ray ``stack_slots(cfg)``
+# path-stack entries of STACK_WORDS words; THREADS rays a block.
+THREADS = 128
+HDR_PAD = 32
+STACK_WORDS = 11
+SHARED_LIMIT = 232448   # bytes a block may use on sm_90 (227 KB)
 _MAT_FIELDS = ("albedo", "emission", "transmission", "albedo2", "specular",
                "reflectivity", "transparency", "ior", "proc", "proc_scale")
 _ROW_FIELDS = {
@@ -119,6 +125,22 @@ def result_planes(res, width: int, height: int) -> torch.Tensor:
     return lane_columns(res).T.reshape(12, height, width).contiguous()
 
 
+def shared_bytes(table_len: int, slots: int) -> int:
+    """Shared memory one block of the trace kernel asks for."""
+    return 4 * (HDR_PAD + table_len + THREADS * slots * STACK_WORDS)
+
+
+def check_shared(table_len: int, slots: int) -> None:
+    """Raise if the scene table and the path stack do not fit in the
+    shared memory of one block."""
+    need = shared_bytes(table_len, slots)
+    if need > SHARED_LIMIT:
+        raise ValueError(
+            f"scene table of {table_len} floats ({4 * table_len} bytes) and "
+            f"a path stack of {slots} slots for {THREADS} rays need "
+            f"{need} bytes of shared memory; a block has {SHARED_LIMIT}")
+
+
 def trace_planes(packed: PackedScene, params: torch.Tensor,
                  frames: torch.Tensor, row: int, width: int, height: int,
                  cfg: RenderConfig) -> torch.Tensor:
@@ -136,19 +158,18 @@ def trace_planes(packed: PackedScene, params: torch.Tensor,
     if not 0 <= row < n:
         raise IndexError(f"row {row} outside a batch of {n}")
     slots = stack_slots(cfg)
-    if slots > KERNEL_STACK:
-        raise ValueError(f"path stack of {slots} slots exceeds the kernel's "
-                         f"{KERNEL_STACK} (max_mirror_bounces + 1 > 16)")
+    check_shared(packed.table.numel(), slots)
     sigma = cfg.diffuse_sigma_deg * math.pi / 180.0
     s2 = sigma * sigma
     out = torch.empty((12, height, width), dtype=torch.float32,
                       device=params.device)
     lib = kernels.library()
     err = lib.yacge_trace_launch(
-        packed.table.data_ptr(), packed.header.data_ptr(), params.data_ptr(),
-        frames.data_ptr(), row, out.data_ptr(), width, height,
-        cfg.max_trace_rounds, cfg.max_mirror_bounces, cfg.max_refractions,
-        cfg.diffuse_bounces, slots, cfg.mirror_threshold,
+        packed.table.data_ptr(), packed.header.data_ptr(),
+        packed.table.numel(), params.data_ptr(), frames.data_ptr(), row,
+        out.data_ptr(), width, height, cfg.max_trace_rounds,
+        cfg.max_mirror_bounces, cfg.max_refractions, cfg.diffuse_bounces,
+        slots, cfg.mirror_threshold,
         1.0 - s2 / (2.0 * (s2 + 0.33)), 0.45 * s2 / (s2 + 0.09),
         cfg.seed_salt & ((1 << 64) - 1),
         torch.cuda.current_stream(params.device).cuda_stream)

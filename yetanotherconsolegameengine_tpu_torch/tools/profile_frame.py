@@ -1,11 +1,14 @@
 """Where a frame's time goes on the card, every number from one process.
 
-    python3 -m yetanotherconsolegameengine_tpu_torch.tools.profile_frame
+    python3 -m yetanotherconsolegameengine_tpu_torch.tools.profile_frame \
+        [--scene dragon] [--size 240x135] [--wall-frames 20] [--prof-frames 5]
 
-Renders the dragon at 240x135 cells (ss=1, default ``RenderConfig``) with
-the kernels (``impl="kernel"``) after three warm-up frames:
+Renders a scene (by default the dragon at 240x135 cells; ss=1, default
+``RenderConfig``) with the kernels (``impl="kernel"``) after three warm-up
+frames:
 
-1. one frame with a CUDA-event pair around every cluster sweep (K3): its
+1. for a cluster scene, one frame with a CUDA-event pair around every
+   cluster sweep (K3): its
    set, tiles, work items, active rays, entries tested (and those the
    serial walk of ``trace_tiles_plain`` visits, of those listed), the
    lane-tests it needs, its least time on the card (``k3_work``) and its
@@ -14,20 +17,21 @@ the kernels (``impl="kernel"``) after three warm-up frames:
    synchronised host clock and by CUDA events, rays/frame and the kernel
    wrappers' launches per frame;
 3. ``PROF_FRAMES`` frames under ``torch.profiler`` with a range around each
-   stage (tile cull, the rest of ``intersect_clusters``, K3, shadow rays,
-   compaction, post): device busy time (the union of device operations)
+   stage (K2, tile cull, the rest of ``intersect_clusters``, K3, shadow
+   rays, compaction, post): device busy time (the union of device operations)
    split by the innermost stage that encloses each operation, device
    kernels and copies per frame, and the host time inside each stage.
 
 The device idle share is 1 - busy / wall, given both for the profiled
 frames' own wall and for step 2's profiler-off wall (device work per frame
 does not depend on the profiler; host time does). Writes
-``chiprun_out/profile_dragon.txt`` under the working directory; exits
+``chiprun_out/profile_<scene>.txt`` under the working directory; exits
 non-zero without a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import os
 import subprocess
@@ -39,6 +43,7 @@ import torch
 # (module attribute, stage label), innermost stages first: an operation
 # counts for the first listed stage whose device range encloses it.
 STAGES = (
+    ("trace_kernel.trace_planes", "K2 trace"),
     ("cluster_kernel.trace_tiles", "K3 cluster sweeps"),
     ("mesh_clusters._tile_cull", "tile cull + list sort (torch)"),
     ("mesh_clusters.intersect_clusters",
@@ -48,8 +53,6 @@ STAGES = (
     ("post_kernel.post", "K1 post"),
 )
 OTHER = "torch wavefront: ray gen, shading, u8 grids"
-SCENE, W, H = "dragon", 240, 135
-WALL_FRAMES, PROF_FRAMES = 20, 5
 OUT = "chiprun_out"
 # Least-time model (H100 SXM data sheet at 700 W: fp32 outside the tensor
 # cores, HBM3): bound = max(operations / PEAK_FLOPS, bytes / PEAK_BYTES).
@@ -111,6 +114,29 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int, warmup: int = 3):
+    """(mean device ms, device operations) per call of ``fn`` over ``reps``
+    calls: the summed durations of the device operations the calls ran,
+    from ``torch.profiler``. Unlike ``cuda_ms`` it leaves out the gaps in
+    which the device waits for the host to enqueue the next call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host_names = {ev.name for ev in events
+                  if ev.device_type != DeviceType.CUDA}
+    ops = [ev.time_range.end - ev.time_range.start for ev in events
+           if ev.device_type == DeviceType.CUDA and ev.name not in host_names]
+    return sum(ops) / 1e3 / reps, len(ops) / reps
+
+
 def union_ms(intervals) -> float:
     """Length of the union of (start, end) intervals in microseconds, in
     milliseconds."""
@@ -143,9 +169,11 @@ def busy_by_stage(ops, spans) -> dict:
 def _patch_stages(record_function):
     """Wrap each stage's module attribute in a profiler range; returns a
     function that undoes it."""
-    from ..ops import cluster_kernel, mesh_clusters, post_kernel, trace
+    from ..ops import (cluster_kernel, mesh_clusters, post_kernel, trace,
+                       trace_kernel)
     mods = dict(cluster_kernel=cluster_kernel, mesh_clusters=mesh_clusters,
-                trace=trace, post_kernel=post_kernel)
+                trace=trace, post_kernel=post_kernel,
+                trace_kernel=trace_kernel)
     saved = []
     for path, label in STAGES:
         mod_name, attr = path.split(".")
@@ -169,7 +197,8 @@ def _sweep_lines(r, scene) -> list:
     from ..ops import cluster_kernel
     names = {id(getattr(scene, k).gmat): k
              for k in ("mesh_clusters", "mesh_clusters_fine",
-                       "mesh_clusters_lod", "mesh_clusters_shadow")}
+                       "mesh_clusters_lod", "mesh_clusters_shadow")
+             if getattr(scene, k) is not None}
     real = cluster_kernel.trace_tiles
     calls = []
 
@@ -188,6 +217,8 @@ def _sweep_lines(r, scene) -> list:
     finally:
         cluster_kernel.trace_tiles = real
     torch.cuda.synchronize()
+    if not calls:
+        return ["no K3 sweeps in this frame"]
     piece, rpb = cluster_kernel.PIECE, cluster_kernel.RAYS_PER_BLOCK
     lines = [f"K3 sweeps of one frame, in order (split schedule: piece "
              f"{piece}, {rpb} rays per block):"]
@@ -218,7 +249,14 @@ def _sweep_lines(r, scene) -> list:
     return lines
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scene", default="dragon")
+    ap.add_argument("--size", default="240x135", help="cells, WxH")
+    ap.add_argument("--wall-frames", type=int, default=20)
+    ap.add_argument("--prof-frames", type=int, default=5)
+    args = ap.parse_args(argv)
+    W, H = map(int, args.size.split("x"))
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA card", file=sys.stderr)
         return 2
@@ -235,9 +273,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    lines = [f"card: {card}; scene {SCENE} {W}x{H} cells, ss=1, "
+    lines = [f"card: {card}; scene {args.scene} {W}x{H} cells, ss=1, "
              f"default RenderConfig, impl=kernel"]
-    scene = SCENE_BUILDERS[SCENE]().to(dev)
+    scene = SCENE_BUILDERS[args.scene]().to(dev)
     r = RaytraceRenderer(scene, W, H, device=dev, impl="kernel")
     r.render_many(3)
     torch.cuda.synchronize()
@@ -246,7 +284,7 @@ def main() -> int:
     lines += _sweep_lines(r, scene)
 
     # 2. Profiler off.
-    n = WALL_FRAMES
+    n = args.wall_frames
     kernels.reset_launches()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -265,7 +303,7 @@ def main() -> int:
         f"launches per frame {launches}")
 
     # 3. Profiler on, with stage ranges.
-    n = PROF_FRAMES
+    n = args.prof_frames
     undo = _patch_stages(record_function)
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -319,7 +357,7 @@ def main() -> int:
 
     text = "\n".join(lines)
     os.makedirs(OUT, exist_ok=True)
-    with open(os.path.join(OUT, f"profile_{SCENE}.txt"), "w") as f:
+    with open(os.path.join(OUT, f"profile_{args.scene}.txt"), "w") as f:
         f.write(text + "\n")
     print(text)
     return 0
