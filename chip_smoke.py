@@ -30,9 +30,27 @@ Phases (one line each; any failure raises and exits non-zero):
      launch counts must be non-zero, then K3's own time on each sweep of
      the frame (device time and CUDA events) against its plain version and
      its least time on the card
+ 10. the LBVH built on the card (``ops/lbvh.py``) equals the CPU build for
+     ``make_knot`` (3,840 triangles), with its build time on the card
+ 11. the BVH walk (``ops/mesh_bvh.py::intersect_mesh``) on the card against
+     the CPU on the bunny's primary rays at 160x180 pixels, with its time,
+     rounds and host waits
+ 12. the ``glass_gem`` and ``texture_test`` goldens on the card (48x28
+     cells, 4 frames, kernels), the post kernel launched
+ 13. the bunny at 160x90 cells, ss=1 (28,800 primary lanes, its LBVH built
+     on the card at ``set_scene``): kernel vs plain renderer over 4 frames,
+     then the timed ``render_many`` (ms/frame by CUDA events and host
+     clock, Mray/s), whose post kernel launch count must be non-zero; then
+     ``demo_random`` at 160x90 (74 spheres in a 128-row table): the trace
+     kernel vs its plain version, kernel vs plain renderer, and a timed
+     ``render_many`` whose trace and post launch counts must be non-zero
+ 14. one ``video_texture`` frame on the card: the synthetic reader's newest
+     frame written into its slot, TAA reset, the post kernel launched
 Then a JSON line of per-kernel results (``ms`` is the device time,
-``event_ms`` the CUDA-event time), the card's name and power limit, and as
-the last line {"ok": true, "device": {...}}.
+``event_ms`` the CUDA-event time; ``launches`` counts Cornell's timed run for
+K1 and K2 and the dragon's for K3, ``launches_by_path`` every timed run),
+the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 
 Imports nothing of JAX: the JAX package is not needed on the card.
 """
@@ -50,14 +68,18 @@ import numpy as np
 import torch
 
 from yetanotherconsolegameengine_tpu_torch.config import DEFAULT_CONFIG
-from yetanotherconsolegameengine_tpu_torch.core.camera import ray_params
+from yetanotherconsolegameengine_tpu_torch.core.camera import (
+    make_jittered_rays, ray_params)
 from yetanotherconsolegameengine_tpu_torch.ops import (cluster_kernel,
-                                                       kernels, post_kernel)
+                                                       kernels, lbvh,
+                                                       mesh_bvh, post_kernel)
 from yetanotherconsolegameengine_tpu_torch.ops import trace_kernel
-from yetanotherconsolegameengine_tpu_torch.ops.intersect import INTERSECTORS
+from yetanotherconsolegameengine_tpu_torch.ops.intersect import (
+    INF, INTERSECTORS)
 from yetanotherconsolegameengine_tpu_torch.render.renderer import (
-    RaytraceRenderer, trace_mesh_planes)
+    RaytraceRenderer, trace_wavefront_planes)
 from yetanotherconsolegameengine_tpu_torch.scene.builders import SCENE_BUILDERS
+from yetanotherconsolegameengine_tpu_torch.scene.mesh_loader import make_knot
 from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import (
     FORCED_SCENE_BUILDERS)
 from yetanotherconsolegameengine_tpu_torch.tools.profile_frame import (
@@ -71,6 +93,8 @@ TRACE_FRAME = 3
 TIMED_FRAMES = 200
 DRAGON_W, DRAGON_H = 240, 135   # the mesh frame: 240x270 traced pixels
 DRAGON_FRAMES = 20
+BUNNY_FRAMES = 10               # the small-mesh frame: 160x180 traced pixels
+DEMO_FRAMES = 100
 # fp32 operations per K2 ray-primitive test (a slab test: 6 sub, 6 mul,
 # 12 min/max) and per K1 pixel (TAA 3x3 clamp ~100; three 5x5 a-trous
 # passes of 25 taps x ~30; exposure and tail ~60). Least times follow
@@ -167,6 +191,86 @@ def post_inputs(packed, w: int, h: int, dev, cfg=DEFAULT_CONFIG):
     reset = torch.zeros((), dtype=torch.bool, device=dev)
     ae = torch.full((), 0.8, dtype=torch.float32, device=dev)
     return cur, prev, hist, valid, reset, ae
+
+
+def lbvh_contract(got, want) -> dict:
+    """Hold an LBVH to another build of the same triangles: every field
+    equal, except the unit normals within 1e-6."""
+    for f in dataclasses.fields(got):
+        g, w = getattr(got, f.name).cpu(), getattr(want, f.name).cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape, f.name
+        if f.name != "n":
+            assert torch.equal(g, w), f"LBVH field {f.name} differs"
+    n_err = float((got.n.cpu() - want.n.cpu()).abs().max())
+    assert n_err <= 1e-6, f"LBVH normals differ by {n_err}"
+    return {"nodes": got.n_nodes, "tris": got.n_tris, "normal_err": n_err}
+
+
+def hit_contract(got, want) -> dict:
+    """Hold a BVH walk's hits to another run on the same rays: equal hit
+    masks and materials, t within 1e-6 relative, normals and u, v within
+    1e-6; reports how many hits are bit-equal in t."""
+    hit = want.hit.cpu()
+    assert torch.equal(got.hit.cpu(), hit), "hit masks"
+    assert torch.equal(got.mat.cpu()[hit], want.mat.cpu()[hit]), "materials"
+    tg, tw = got.t.cpu()[hit], want.t.cpu()[hit]
+    t_rel = float(((tg - tw).abs() / tw.abs()).max()) if hit.any() else 0.0
+    assert t_rel <= 1e-6, f"t rel err {t_rel}"
+    err = max(float((getattr(got, f).cpu()[hit]
+                     - getattr(want, f).cpu()[hit]).abs().max())
+              for f in ("n", "u", "v")) if hit.any() else 0.0
+    assert err <= 1e-6, f"normal/uv err {err}"
+    return {"rays": int(hit.numel()), "hits": int(hit.sum()),
+            "t_rel": t_rel, "n_uv_abs": err,
+            "t_bit_equal": float((tg == tw).float().mean())
+            if hit.any() else 1.0}
+
+
+def timed_frames(r, n: int, keys, warmup: int = 2) -> dict:
+    """Warm up ``r`` for ``warmup`` frames, then time ``r.render_many(n)``
+    with every launch count set to 0 just before and read just after; each
+    kernel of ``keys`` must have launched."""
+    r.render_many(warmup)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    mesh_bvh.STATS.clear()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    grids, out = r.render_many(n)
+    stop.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    launches = dict(kernels.LAUNCHES)
+    for k in keys:
+        assert launches[k] > 0, f"kernel {k} was not launched by the path"
+    fg = _np(grids[0])
+    assert fg.shape == (n, r.fb_h, r.fb_w) and fg.min() >= 16
+    assert np.isfinite(_np(out.top_rgb)).all()
+    ms = start.elapsed_time(stop) / n
+    rays = int(out.rays_traced)
+    return {"ms": ms, "host_ms": wall, "rays": rays,
+            "mray_s": rays / ms / 1e3, "launches": launches,
+            "bvh": dict(mesh_bvh.STATS)}
+
+
+def renderer_contract(scene, w, h, dev):
+    """Kernel vs plain renderer on the card over 4 frames: RGB within
+    2e-3, ANSI flips under 0.5%, equal rays_traced. Returns (the errors,
+    the kernel renderer)."""
+    rk = RaytraceRenderer(scene, w, h, device=dev, impl="kernel")
+    rp = RaytraceRenderer(scene, w, h, device=dev, impl="plain")
+    gk, ok_ = rk.render_many(4)
+    gp, op_ = rp.render_many(4)
+    err = max(np.abs(_np(ok_.top_rgb) - _np(op_.top_rgb)).max(),
+              np.abs(_np(ok_.bot_rgb) - _np(op_.bot_rgb)).max())
+    flips = float(np.mean([(_np(a) != _np(b)).mean()
+                           for a, b in zip(gk, gp)]))
+    assert err <= 2e-3 and flips < 0.005, (err, flips)
+    assert int(ok_.rays_traced) == int(op_.rays_traced)
+    return {"rgb": float(err), "ansi_flips": flips,
+            "rays": int(ok_.rays_traced)}, rk
 
 
 def real_blockers(args, win) -> bool:
@@ -319,44 +423,17 @@ def main() -> int:
           f"{json.dumps(golden_err)}", flush=True)
 
     # ---- 6. the slice at full size ---------------------------------------
-    cornell = SCENE_BUILDERS["cornell"]()
-    rk = RaytraceRenderer(cornell, FB_W, FB_H, device=dev, impl="kernel")
-    rp = RaytraceRenderer(cornell, FB_W, FB_H, device=dev, impl="plain")
-    gk, ok_ = rk.render_many(4)
-    gp, op_ = rp.render_many(4)
-    full_err = max(np.abs(_np(ok_.top_rgb) - _np(op_.top_rgb)).max(),
-                   np.abs(_np(ok_.bot_rgb) - _np(op_.bot_rgb)).max())
-    full_flips = float((_np(gk[0]) != _np(gp[0])).mean())
-    assert full_err <= 2e-3 and full_flips < 0.005, (full_err, full_flips)
-    assert int(ok_.rays_traced) == int(op_.rays_traced)
+    c_err, rk = renderer_contract(SCENE_BUILDERS["cornell"](), FB_W, FB_H,
+                                  dev)
     print(f"phase 6a {card} kernel vs plain renderer at {FB_W}x{FB_H}, 4 "
-          f"frames: max rgb err {full_err:.3g}, ANSI flips {full_flips:.4%}",
-          flush=True)
-
-    rk.render_many(20)                      # warm-up
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    grids, out = rk.render_many(TIMED_FRAMES)
-    stop.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    for k in ("trace", "post"):
-        assert launches[k] > 0, f"kernel {k} was not launched by the main path"
-    ms = start.elapsed_time(stop) / TIMED_FRAMES
-    rays = int(out.rays_traced)
-    fg = _np(grids[0])
-    assert fg.shape == (TIMED_FRAMES, FB_H, FB_W) and fg.min() >= 16
-    assert np.isfinite(_np(out.top_rgb)).all()
+          f"frames: {json.dumps(c_err)}", flush=True)
+    c_run = timed_frames(rk, TIMED_FRAMES, ("trace", "post"), warmup=20)
+    launches = c_run["launches"]
     print(f"phase 6b {card} Cornell {FB_W}x{FB_H} ss=1 render_many("
-          f"{TIMED_FRAMES}): {ms:.4f} ms/frame (device events), "
-          f"{1000.0 / ms:.1f} fps, {rays} rays/frame (last frame), "
-          f"{rays / ms / 1e3:.2f} Mray/s; host wall {wall:.3f} s; "
-          f"launches {launches}", flush=True)
+          f"{TIMED_FRAMES}): {c_run['ms']:.4f} ms/frame (device events), "
+          f"{1000.0 / c_run['ms']:.1f} fps, {c_run['rays']} rays/frame (last "
+          f"frame), {c_run['mray_s']:.2f} Mray/s; host clock "
+          f"{c_run['host_ms']:.4f} ms/frame; launches {launches}", flush=True)
 
     # Per-kernel times at the main path's shapes, kernel beside plain.
     packed = rk.packed
@@ -411,8 +488,8 @@ def main() -> int:
     d_params = ray_params(dragon.default_pose, dw, dh, TRACE_FRAME)[None]
 
     def dragon_frame(c):
-        return trace_mesh_planes(dragon, d_params[0], TRACE_FRAME, dw, dh, c,
-                                 "kernel")
+        return trace_wavefront_planes(dragon, d_params[0], TRACE_FRAME, dw, dh,
+                                      c, "kernel")
 
     sets = {id(getattr(dragon, k).gmat): k.replace("mesh_clusters", "")
             .lstrip("_") or "full"
@@ -453,46 +530,18 @@ def main() -> int:
           f"{json.dumps(cluster_golden_err)}", flush=True)
 
     # ---- 9. the dragon at full size --------------------------------------
-    dk = RaytraceRenderer(dragon, DRAGON_W, DRAGON_H, device=dev,
-                          impl="kernel")
-    dp = RaytraceRenderer(dragon, DRAGON_W, DRAGON_H, device=dev,
-                          impl="plain")
-    gk, ok_ = dk.render_many(4)
-    gp, op_ = dp.render_many(4)
-    d_err = max(np.abs(_np(ok_.top_rgb) - _np(op_.top_rgb)).max(),
-                np.abs(_np(ok_.bot_rgb) - _np(op_.bot_rgb)).max())
-    d_flips = float(np.mean([(_np(a) != _np(b)).mean()
-                             for a, b in zip(gk, gp)]))
-    assert d_err <= 2e-3 and d_flips < 0.005, (d_err, d_flips)
-    assert int(ok_.rays_traced) == int(op_.rays_traced), \
-        (int(ok_.rays_traced), int(op_.rays_traced))
+    dragon_err, dk = renderer_contract(dragon, DRAGON_W, DRAGON_H, dev)
     print(f"phase 9a {card} dragon kernel vs plain renderer at "
-          f"{DRAGON_W}x{DRAGON_H}, 4 frames: max rgb err {d_err:.3g}, ANSI "
-          f"flips {d_flips:.4%}, rays_traced {int(ok_.rays_traced)}",
+          f"{DRAGON_W}x{DRAGON_H}, 4 frames: {json.dumps(dragon_err)}",
           flush=True)
-
-    dk.render_many(2)                       # warm-up
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    start.record()
-    grids, out = dk.render_many(DRAGON_FRAMES)
-    stop.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    d_launches = dict(kernels.LAUNCHES)
-    for k in ("clusters", "post"):
-        assert d_launches[k] > 0, f"kernel {k} was not launched by the dragon"
-    d_ms = start.elapsed_time(stop) / DRAGON_FRAMES
-    d_rays = int(out.rays_traced)
-    fg = _np(grids[0])
-    assert fg.shape == (DRAGON_FRAMES, DRAGON_H, DRAGON_W) and fg.min() >= 16
-    assert np.isfinite(_np(out.top_rgb)).all()
+    d_run = timed_frames(dk, DRAGON_FRAMES, ("clusters", "post"))
+    d_launches = d_run["launches"]
     print(f"phase 9b {card} dragon {DRAGON_W}x{DRAGON_H} ss=1 render_many("
-          f"{DRAGON_FRAMES}): {d_ms:.4f} ms/frame (device events), "
-          f"{1000.0 / d_ms:.2f} fps, {d_rays} rays/frame (last frame), "
-          f"{d_rays / d_ms / 1e3:.3f} Mray/s; host wall {wall:.3f} s; "
-          f"launches {d_launches}", flush=True)
+          f"{DRAGON_FRAMES}): {d_run['ms']:.4f} ms/frame (device events), "
+          f"{1000.0 / d_run['ms']:.2f} fps, {d_run['rays']} rays/frame (last "
+          f"frame), {d_run['mray_s']:.3f} Mray/s; host clock "
+          f"{d_run['host_ms']:.4f} ms/frame; launches {d_launches}",
+          flush=True)
 
     # K3 on each sweep of the frame (phase 7's inputs), with its least time.
     k3_sweeps = []
@@ -518,6 +567,125 @@ def main() -> int:
           f"share {k3_bound / t_k3:.2%}; per sweep {json.dumps(k3_sweeps)}",
           flush=True)
 
+    # ---- 10. the LBVH built on the card --------------------------------
+    knot = make_knot()
+    soup = [torch.from_numpy(np.ascontiguousarray(x)) for x in
+            (knot[:, 0], knot[:, 1], knot[:, 2],
+             np.arange(len(knot), dtype=np.int32) % 3)]
+    card_soup = [x.to(dev) for x in soup]
+    lbvh_err = lbvh_contract(lbvh.build_lbvh(*card_soup),
+                             lbvh.build_lbvh(*soup))
+    lbvh_ms = cuda_ms(lambda: lbvh.build_lbvh(*card_soup), 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        lbvh.build_lbvh(*card_soup)
+    torch.cuda.synchronize()
+    lbvh_host = (time.perf_counter() - t0) * 1e3 / 20
+    print(f"phase 10 {card} LBVH on the card vs the CPU build, make_knot "
+          f"({len(knot)} triangles): {json.dumps(lbvh_err)}; build "
+          f"{lbvh_ms:.4f} ms by CUDA events, {lbvh_host:.4f} ms by host "
+          f"clock (20 builds)", flush=True)
+
+    # ---- 11. the BVH walk on the card vs the CPU -------------------------
+    bunny = SCENE_BUILDERS["bunny"]()
+    bunny_card = bunny.to(dev)
+    lbvh_contract(bunny_card.mesh, bunny.mesh)
+    b_params = ray_params(bunny_card.default_pose, HI_W, HI_H, TRACE_FRAME)
+    o, d = (x.reshape(-1, 3) for x in make_jittered_rays(
+        None, HI_W, HI_H, TRACE_FRAME, params=b_params))
+    mesh_bvh.STATS.clear()
+    got = mesh_bvh.intersect_mesh(bunny_card.mesh, o, d, 1e-3, INF)
+    torch.cuda.synchronize()
+    walk = dict(mesh_bvh.STATS)
+    walk_err = hit_contract(got, mesh_bvh.intersect_mesh(
+        bunny.mesh, o.cpu(), d.cpu(), 1e-3, INF))
+    walk_ms = cuda_ms(lambda: mesh_bvh.intersect_mesh(
+        bunny_card.mesh, o, d, 1e-3, INF), 5, 1)
+    print(f"phase 11 {card} BVH walk on the card vs the CPU, bunny primary "
+          f"rays {HI_W}x{HI_H} frame {TRACE_FRAME}: {json.dumps(walk_err)}; "
+          f"{walk_ms:.3f} ms a sweep by CUDA events; {walk['rounds']} "
+          f"rounds, {walk['waits']} host waits, "
+          f"{walk.get('compactions', 0)} compactions", flush=True)
+
+    # ---- 12. texture and glass-gem goldens on the card -------------------
+    tex_golden_err = {}
+    for name in ("glass_gem", "texture_test"):
+        before = kernels.LAUNCHES["post"]
+        r = RaytraceRenderer(SCENE_BUILDERS[name](), 48, 28, device=dev)
+        assert not isinstance(r.packed, trace_kernel.PackedScene), name
+        for _ in range(4):
+            out = r.render()
+        e = max(np.abs(_np(out.top_rgb) - goldens[f"{name}_top"]).max(),
+                np.abs(_np(out.bot_rgb) - goldens[f"{name}_bot"]).max())
+        assert e <= 2e-3, f"{name}: golden error {e}"
+        assert kernels.LAUNCHES["post"] == before + 4, f"{name} without K1"
+        tex_golden_err[name] = float(e)
+    print(f"phase 12 goldens on the card (48x28, 4 frames, kernels): "
+          f"{json.dumps(tex_golden_err)}", flush=True)
+
+    # ---- 13. the bunny and demo_random at 160x90 -------------------------
+    b_err, bk = renderer_contract(bunny, FB_W, FB_H, dev)
+    b_run = timed_frames(bk, BUNNY_FRAMES, ("post",))
+    print(f"phase 13a {card} bunny {FB_W}x{FB_H} ss=1: kernel vs plain "
+          f"renderer, 4 frames: {json.dumps(b_err)}; render_many("
+          f"{BUNNY_FRAMES}): {b_run['ms']:.4f} ms/frame by CUDA events, "
+          f"{b_run['host_ms']:.4f} by host clock, {1000.0 / b_run['ms']:.2f} "
+          f"fps, {b_run['rays']} rays/frame (last frame), "
+          f"{b_run['mray_s']:.4f} Mray/s; launches {b_run['launches']}; BVH "
+          f"walk {b_run['bvh']}", flush=True)
+
+    demo = SCENE_BUILDERS["demo_random"]()
+    demo_err, demo_r = renderer_contract(demo, FB_W, FB_H, dev)
+    demo_pack = demo_r.packed
+    assert isinstance(demo_pack, trace_kernel.PackedScene)
+    demo_params, demo_frames = trace_inputs(demo_pack.scene, HI_W, HI_H,
+                                            TRACE_FRAME, dev)
+
+    def k2_demo():
+        return trace_kernel.trace_planes(demo_pack, demo_params, demo_frames,
+                                         0, HI_W, HI_H, cfg)
+
+    demo_trace = trace_contract(_np(k2_demo()), _np(
+        trace_kernel.trace_planes_plain(demo_pack.scene, demo_params[0],
+                                        TRACE_FRAME, HI_W, HI_H, cfg)))
+    demo_run = timed_frames(demo_r, DEMO_FRAMES, ("trace", "post"))
+    demo_k2 = kernel_ms(k2_demo, 100)
+    demo_k2p = cuda_ms(lambda: trace_kernel.trace_planes_plain(
+        demo_pack.scene, demo_params[0], TRACE_FRAME, HI_W, HI_H, cfg), 3, 1)
+    demo_rows = sum(int(getattr(demo_pack.scene, name).mask.sum())
+                    for name, _ in INTERSECTORS)
+    demo_out = k2_demo()
+    demo_bound = roofline(int(demo_out[11].sum()) * demo_rows * K2_OPS,
+                          demo_pack.table.numel() * 4
+                          + demo_out.numel() * 4)
+    print(f"phase 13b {card} demo_random {FB_W}x{FB_H} ss=1 ({demo_rows} "
+          f"primitives): trace kernel vs plain {json.dumps(demo_trace)}; "
+          f"kernel vs plain renderer {json.dumps(demo_err)}; render_many("
+          f"{DEMO_FRAMES}): {demo_run['ms']:.4f} ms/frame by CUDA events, "
+          f"{demo_run['host_ms']:.4f} by host clock, "
+          f"{demo_run['mray_s']:.2f} Mray/s; launches {demo_run['launches']}; "
+          f"trace kernel {demo_k2:.4f} ms device time vs plain "
+          f"{demo_k2p:.3f} ms, bound {demo_bound[0]:.5f} ms by "
+          f"{demo_bound[1]}, share {demo_bound[0] / demo_k2:.2%}", flush=True)
+
+    # ---- 14. a video_texture frame on the card ---------------------------
+    vt = RaytraceRenderer(SCENE_BUILDERS["video_texture"](), 48, 28,
+                          device=dev)
+    slot = vt.scene.textures.clone()
+    time.sleep(0.05)                       # the synthetic frame moves on
+    kernels.reset_launches()
+    _, vout = vt.render_many(1)
+    torch.cuda.synchronize()
+    moved = float((vt.scene.textures - slot).abs().max())
+    assert moved > 0.0, "the video slot was not refreshed"
+    assert kernels.LAUNCHES["post"] == 1 and kernels.LAUNCHES["trace"] == 0
+    assert torch.equal(vt.state.history, vt.state.prev_gbuf[0:3]), "TAA"
+    assert torch.isfinite(vout.top_rgb).all()
+    print(f"phase 14 {card} video_texture 48x28, one frame: slot refreshed "
+          f"(max texel change {moved:.4f}), TAA reset, launches "
+          f"{dict(kernels.LAUNCHES)}", flush=True)
+
     print(json.dumps({"kernels": [
         {"name": "trace", "route": "cuda",
          "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
@@ -527,7 +695,12 @@ def main() -> int:
          "max_abs_err": max(e["radiance_abs"] for e in trace_err.values()),
          "ms": d_k2, "event_ms": t_k2, "plain_ms": t_k2p,
          "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "bound_by": k2_bound[1], "library_ms": None,
+         "launches_by_path": {"cornell": launches["trace"],
+                              "demo_random": demo_run["launches"]["trace"]},
+         "demo_random": {"ms": demo_k2, "plain_ms": demo_k2p,
+                         "bound_ms": demo_bound[0],
+                         "bound_by": demo_bound[1]}},
         {"name": "post", "route": "cuda",
          "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
                    "post_kernel.cu",
@@ -536,7 +709,11 @@ def main() -> int:
          "max_abs_err": max(e["rgb"] for e in post_err.values()),
          "ms": d_k1, "event_ms": t_k1, "plain_ms": t_k1p,
          "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None,
+         "launches_by_path": {"cornell": launches["post"],
+                              "dragon": d_launches["post"],
+                              "bunny": b_run["launches"]["post"],
+                              "demo_random": demo_run["launches"]["post"]}},
         {"name": "clusters", "route": "cuda",
          "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
                    "cluster_kernel.cu",

@@ -10,20 +10,23 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (post_contract, record_sweeps, sweep_contract,
-                        trace_contract)
+from chip_smoke import (hit_contract, lbvh_contract, post_contract,
+                        record_sweeps, sweep_contract, trace_contract)
 from yetanotherconsolegameengine_tpu_torch.config import DEFAULT_CONFIG
-from yetanotherconsolegameengine_tpu_torch.core.camera import ray_params
+from yetanotherconsolegameengine_tpu_torch.core.camera import (
+    make_jittered_rays, ray_params)
 from yetanotherconsolegameengine_tpu_torch.ops import (cluster_kernel, kernels,
+                                                       lbvh, mesh_bvh,
                                                        mesh_clusters,
                                                        post_kernel,
                                                        trace_kernel)
+from yetanotherconsolegameengine_tpu_torch.ops.intersect import INF
 from yetanotherconsolegameengine_tpu_torch.ops.trace import stack_slots
 from yetanotherconsolegameengine_tpu_torch.render.renderer import (
     RaytraceRenderer)
 from yetanotherconsolegameengine_tpu_torch.scene.builders import SCENE_BUILDERS
 from yetanotherconsolegameengine_tpu_torch.scene.mesh_loader import (
-    make_icosphere)
+    make_icosphere, make_knot)
 from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import (
     FORCED_SCENE_BUILDERS)
 
@@ -349,3 +352,61 @@ def test_renderer_kernels_match_cluster_goldens(dev, name):
                                goldens[f"{name}_top"], atol=2e-3)
     np.testing.assert_allclose(out.bot_rgb.cpu().numpy(),
                                goldens[f"{name}_bot"], atol=2e-3)
+
+
+@pytest.mark.parametrize("n", [5, 1280, 3840])
+def test_lbvh_on_the_card_equals_the_cpu_build(dev, n):
+    """Equal trees (normals within 1e-6) for a straddling leaf, the
+    bunny's count and make_knot's."""
+    tris = np.concatenate([make_knot(), make_icosphere(3)])[:n]
+    soup = [torch.from_numpy(np.ascontiguousarray(x)) for x in
+            (tris[:, 0], tris[:, 1], tris[:, 2],
+             np.arange(n, dtype=np.int32) % 3)]
+    lbvh_contract(lbvh.build_lbvh(*(x.to(dev) for x in soup)),
+                  lbvh.build_lbvh(*soup))
+
+
+def test_scene_to_the_card_rebuilds_its_lbvh_there(dev):
+    scene = SCENE_BUILDERS["bunny"]()
+    card = scene.to(dev)
+    assert card.mesh.bmin.device.type == "cuda"
+    lbvh_contract(card.mesh, scene.mesh)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_bvh_walk_on_the_card_equals_the_cpu(dev, compact):
+    scene = SCENE_BUILDERS["bunny"]()
+    card = scene.to(dev)
+    params = ray_params(card.default_pose, W, H, 3)
+    o, d = (x.reshape(-1, 3) for x in make_jittered_rays(
+        None, W, H, 3, params=params))
+    got = mesh_bvh.intersect_mesh(card.mesh, o, d, 1e-3, INF,
+                                  compact=compact)
+    res = hit_contract(got, mesh_bvh.intersect_mesh(
+        scene.mesh, o.cpu(), d.cpu(), 1e-3, INF))
+    assert res["hits"] > 50
+
+
+@pytest.mark.parametrize("name", ["glass_gem", "texture_test"])
+def test_renderer_kernels_match_texture_and_gem_goldens(dev, name):
+    goldens = np.load("tests/goldens.npz")
+    before = kernels.LAUNCHES["post"]
+    r = RaytraceRenderer(SCENE_BUILDERS[name](), 48, 28, device=dev)
+    assert not isinstance(r.packed, trace_kernel.PackedScene)
+    for _ in range(4):
+        out = r.render()
+    assert kernels.LAUNCHES["post"] == before + 4
+    np.testing.assert_allclose(out.top_rgb.cpu().numpy(),
+                               goldens[f"{name}_top"], atol=2e-3)
+    np.testing.assert_allclose(out.bot_rgb.cpu().numpy(),
+                               goldens[f"{name}_bot"], atol=2e-3)
+
+
+def test_trace_kernel_matches_plain_on_demo_random(dev):
+    """74 spheres in a 128-row table fit the kernel and match its plain
+    version."""
+    scene = SCENE_BUILDERS["demo_random"]()
+    assert trace_kernel.scene_fits(scene)
+    packed = trace_kernel.pack_scene(scene.to(dev))
+    trace_contract(_trace(packed, 3, dev).cpu().numpy(),
+                   _trace(packed, 3, dev, plain=True).cpu().numpy())

@@ -195,10 +195,15 @@ def test_builder_routing_with_fine_set_equals_jax(monkeypatch, transparent):
 
 
 def test_small_meshes_raise_with_the_lbvh_item():
+    """Meshes under CLUSTER_MIN_TRIS no longer raise: each builds an LBVH
+    (and keeps its soup), never cluster tables; the dragon still takes the
+    cluster path, and only a voxel field still raises."""
     for name in ("bunny", "teapot", "cow", "glass_gem", "all_meshes"):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            builders.SCENE_BUILDERS[name]()
+        sc = builders.SCENE_BUILDERS[name]()
+        assert sc.mesh is not None and sc.mesh_soup is not None
+        assert sc.mesh_clusters is None
+        assert sc.mesh_soup.a.shape[0] < ptables.CLUSTER_MIN_TRIS
     assert "dragon" in builders.SCENE_BUILDERS
     flat = flatten_jax_scene(jtables.SceneBuilder("x").build())
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        ptables.scene_from_numpy(dict(flat, mesh=np.ones(1, np.bool_)))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ptables.scene_from_numpy(dict(flat, voxels=np.ones(1, np.bool_)))

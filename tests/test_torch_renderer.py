@@ -29,7 +29,8 @@ def goldens():
 
 
 @pytest.mark.parametrize("name", ["test", "cornell", "mirror_spheres",
-                                  "primitives", "boxes", "glass"])
+                                  "primitives", "boxes", "glass",
+                                  "glass_gem", "texture_test"])
 def test_renderer_matches_golden(goldens, name):
     r = RaytraceRenderer(SCENE_BUILDERS[name](), FB_W, FB_H, device="cpu")
     for _ in range(FRAMES):
@@ -101,17 +102,19 @@ def test_kernel_impl_needs_cuda():
 
 
 def test_port_runs_without_jax():
-    """The card's machine has no JAX: importing the port and rendering a
-    frame must import neither jax nor the JAX package."""
+    """The card's machine has no JAX: importing the port and rendering
+    frames of a primitive, a mesh and a textured scene must import neither
+    jax nor the JAX package."""
     code = (
         "import sys\n"
         "from yetanotherconsolegameengine_tpu_torch.render.renderer import "
         "RaytraceRenderer\n"
         "from yetanotherconsolegameengine_tpu_torch.scene.builders import "
         "SCENE_BUILDERS\n"
-        "out = RaytraceRenderer(SCENE_BUILDERS['cornell'](), 24, 16,"
+        "for name in ('cornell', 'bunny', 'texture_test'):\n"
+        "    out = RaytraceRenderer(SCENE_BUILDERS[name](), 24, 16,"
         " device='cpu').render()\n"
-        "assert out.fg_ansi.shape == (16, 24)\n"
+        "    assert out.fg_ansi.shape == (16, 24)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'yetanotherconsolegameengine_tpu' or "
         "m.startswith('yetanotherconsolegameengine_tpu.'))\n"

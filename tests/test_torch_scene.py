@@ -1,5 +1,6 @@
 """The port's numpy scene builders against the JAX package's: equal tables,
-and the numpy carry-across of a JAX scene."""
+and the numpy carry-across of a JAX scene (its LBVH and texture bank
+included)."""
 
 import dataclasses
 
@@ -9,10 +10,12 @@ import pytest
 from yetanotherconsolegameengine_tpu.scene import builders as jbuilders
 from yetanotherconsolegameengine_tpu_torch.scene import builders, tables
 from yetanotherconsolegameengine_tpu_torch.scene.materials import (
-    PROC_TEXTURE, Material, MaterialBank)
+    PROC_CELL_TINT, PROC_TEXTURE, Material, MaterialBank)
 
 SCENES = ["test", "cornell", "mirror_spheres", "primitives", "boxes",
-          "glass"]
+          "glass", "demo_random", "texture_test"]
+MESH_FIELDS = ("bmin", "bmax", "skip", "tri_start", "tri_count", "a", "e1",
+               "e2", "n", "mat")
 
 
 def flatten_jax_scene(sc) -> dict:
@@ -27,11 +30,17 @@ def flatten_jax_scene(sc) -> dict:
     d["name"] = np.asarray(sc.name)
     d["binary_shadows"] = np.asarray(sc.binary_shadows)
     d["defaults"] = np.asarray(sc.defaults, np.float64)
-    for k in ("mesh", "mesh_clusters", "voxels", "textures"):
+    for k in ("mesh_clusters", "voxels"):
         if getattr(sc, k) is not None:
             d[k] = np.ones(1, np.bool_)
+    if sc.mesh is not None:
+        for f in MESH_FIELDS:
+            d[f"mesh.{f}"] = np.asarray(getattr(sc.mesh, f))
+        d["mesh_all_opaque"] = np.asarray(sc.mesh_all_opaque)
+    if sc.textures is not None:
+        d["textures"] = np.asarray(sc.textures)
     if sc.has_dynamic_textures:
-        d["has_dynamic_textures"] = np.ones(1, np.bool_)
+        d["has_dynamic_textures"] = np.asarray(True)
     return d
 
 
@@ -56,20 +65,28 @@ def test_builder_tables_equal_jax(name):
 
 
 def test_scene_from_numpy_refuses_what_is_not_ported():
+    """Textures and meshes now carry across; voxel worlds still raise with
+    their ROADMAP item, and an unknown key with KeyError."""
     flat = flatten_jax_scene(jbuilders.SCENE_BUILDERS["texture_test"]())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tables.scene_from_numpy(flat)
+    carried = tables.scene_from_numpy(flat)
+    np.testing.assert_array_equal(carried.textures.numpy(), flat["textures"])
+    assert carried.textures.shape == (1, 64, 64, 3)
     flat = flatten_jax_scene(jbuilders.SCENE_BUILDERS["cornell"]())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tables.scene_from_numpy(dict(flat, mesh=np.ones(1, np.bool_)))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tables.scene_from_numpy(dict(flat, voxels=np.ones(1, np.bool_)))
     with pytest.raises(KeyError):
         tables.scene_from_numpy(dict(flat, lod=np.ones(1)))
 
 
 def test_texture_material_raises():
+    """Texture and per-cell tint materials build now; only a proc that
+    ``sample_albedo`` does not know raises."""
     bank = MaterialBank()
     bank.add(Material(proc=PROC_TEXTURE, tex_id=0))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    bank.add(Material(proc=PROC_CELL_TINT))
+    assert bank.build().proc.tolist() == [0, PROC_TEXTURE, PROC_CELL_TINT]
+    bank.add(Material(proc=7))
+    with pytest.raises(ValueError, match="proc"):
         bank.build()
 
 

@@ -11,9 +11,12 @@ the same selection the trace kernel makes ray by ray. Dot products are
 summed x + y + z in that order, as in the kernel.
 
 Every function takes rays ``o``, ``d`` (P, 3) and scalar-or-(P,) ``tmin``
-/ ``tmax`` and returns a ``Hit``. ``intersect_scene`` then sweeps the
-scene's cluster mesh (ops/mesh_clusters.py), clipped to the primitives'
-nearest hit. Smaller meshes and voxel worlds are not ported.
+/ ``tmax`` and returns a ``Hit`` with the winner's surface coordinates
+u, v (boxes and rects: the face coordinates; triangles: the barycentrics;
+zero for the other types), which texture lookup reads.
+``intersect_scene`` then sweeps the scene's BVH mesh (ops/mesh_bvh.py) and
+its cluster mesh (ops/mesh_clusters.py), each clipped to the primitives'
+nearest hit. Voxel worlds are not ported.
 """
 
 from __future__ import annotations
@@ -31,14 +34,17 @@ INF = 3.0e38
 class Hit:
     t: torch.Tensor     # (P,) hit distance; INF when miss
     n: torch.Tensor     # (P, 3) shading normal; 0 when miss
+    u: torch.Tensor     # (P,) surface coordinates; 0 when miss
+    v: torch.Tensor     # (P,)
     mat: torch.Tensor   # (P,) i32 material id; 0 when miss
     hit: torch.Tensor   # (P,) bool
 
     @staticmethod
     def miss(o: torch.Tensor) -> "Hit":
         p = o.shape[0]
+        z = torch.zeros((p,), device=o.device)
         return Hit(t=torch.full((p,), INF, device=o.device),
-                   n=torch.zeros((p, 3), device=o.device),
+                   n=torch.zeros((p, 3), device=o.device), u=z, v=z,
                    mat=torch.zeros((p,), dtype=torch.int32, device=o.device),
                    hit=torch.zeros((p,), dtype=torch.bool, device=o.device))
 
@@ -47,6 +53,8 @@ def merge(a: Hit, b: Hit) -> Hit:
     take_b = b.hit & (b.t < a.t)
     return Hit(t=torch.where(take_b, b.t, a.t),
                n=torch.where(take_b[:, None], b.n, a.n),
+               u=torch.where(take_b, b.u, a.u),
+               v=torch.where(take_b, b.v, a.v),
                mat=torch.where(take_b, b.mat, a.mat),
                hit=a.hit | b.hit)
 
@@ -109,7 +117,20 @@ def intersect_spheres(tb, o, d, tmin, tmax) -> Hit:
     inv_r = 1.0 / torch.clamp(tb.radius, min=1e-20)
     p = o + tbest[:, None] * d
     n = (p - tb.center[idx]) * inv_r[idx][:, None]
-    return Hit(t=tbest, n=n, mat=tb.mat[idx], hit=hit)
+    z = torch.zeros_like(tbest)
+    return Hit(t=tbest, n=n, u=z, v=z, mat=tb.mat[idx], hit=hit)
+
+
+def _face_uv(p, ax, lo, hi):
+    """u, v of hit points ``p`` (P, 3) on faces of axis ``ax`` (P,) whose
+    extents are ``lo``/``hi`` (P, 3): the two free axes in ascending
+    order, each scaled to [0, 1] over the face."""
+    fa = torch.where(ax == 0, 1, 0)[:, None]
+    fb = torch.where(ax == 2, 1, 2)[:, None]
+    pick = lambda x, f: x.gather(1, f)[:, 0]
+    u = _safe_div(pick(p, fa) - pick(lo, fa), pick(hi, fa) - pick(lo, fa))
+    v = _safe_div(pick(p, fb) - pick(lo, fb), pick(hi, fb) - pick(lo, fb))
+    return u, v
 
 
 def intersect_boxes(tb, o, d, tmin, tmax) -> Hit:
@@ -135,7 +156,8 @@ def intersect_boxes(tb, o, d, tmin, tmax) -> Hit:
     d_axis = d.gather(1, ax[:, None])[:, 0]
     n = torch.nn.functional.one_hot(ax, 3).to(torch.float32) \
         * torch.where(d_axis < 0, 1.0, -1.0)[:, None]
-    return Hit(t=tbest, n=n, mat=tb.mat[idx], hit=hit)
+    u, v = _face_uv(o + tbest[:, None] * d, ax, tb.bmin[idx], tb.bmax[idx])
+    return Hit(t=tbest, n=n, u=u, v=v, mat=tb.mat[idx], hit=hit)
 
 
 def intersect_rects(tb, o, d, tmin, tmax) -> Hit:
@@ -159,7 +181,10 @@ def intersect_rects(tb, o, d, tmin, tmax) -> Hit:
     d_axis = d.gather(1, ax[:, None])[:, 0]
     n = torch.nn.functional.one_hot(ax, 3).to(torch.float32) \
         * torch.where(d_axis < 0, 1.0, -1.0)[:, None]
-    return Hit(t=tbest, n=n, mat=tb.mat[idx], hit=hit)
+    u0, u1, v0, v1 = (getattr(tb, f)[idx] for f in ("u0", "u1", "v0", "v1"))
+    u = _safe_div(_pick(pu, idx) - u0, u1 - u0)
+    v = _safe_div(_pick(pv, idx) - v0, v1 - v0)
+    return Hit(t=tbest, n=n, u=u, v=v, mat=tb.mat[idx], hit=hit)
 
 
 def intersect_cylinders(tb, o, d, tmin, tmax) -> Hit:
@@ -217,7 +242,7 @@ def intersect_cylinders(tb, o, d, tmin, tmax) -> Hit:
     n_cap = torch.stack([zero, ny, zero], -1)
     n = torch.where((is_top | is_bot)[:, None], n_cap, n_side)
     n = torch.where((dot3(n, d) >= 0.0)[:, None], -n, n)
-    return Hit(t=tbest, n=n, mat=tb.mat[idx], hit=hit)
+    return Hit(t=tbest, n=n, u=zero, v=zero, mat=tb.mat[idx], hit=hit)
 
 
 def intersect_disks(tb, o, d, tmin, tmax) -> Hit:
@@ -239,7 +264,8 @@ def intersect_disks(tb, o, d, tmin, tmax) -> Hit:
     valid = ((adenom >= 1e-6) & (t >= tmin) & (t <= tmax)
              & (ex * ex + ez * ez <= (tb.radius * tb.radius)[None]))
     tbest, idx, hit = _first_min(torch.where(valid, t, INF), tb.mask)
-    return Hit(t=tbest, n=_flip_against(tb.normal[idx], d),
+    z = torch.zeros_like(tbest)
+    return Hit(t=tbest, n=_flip_against(tb.normal[idx], d), u=z, v=z,
                mat=tb.mat[idx], hit=hit)
 
 
@@ -253,7 +279,8 @@ def intersect_planes(tb, o, d, tmin, tmax) -> Hit:
     t = _safe_div(tb.d[None] - no, denom)
     valid = (denom.abs() >= 1e-6) & (t >= tmin) & (t <= tmax)
     tbest, idx, hit = _first_min(torch.where(valid, t, INF), tb.mask)
-    return Hit(t=tbest, n=_flip_against(tb.normal[idx], d),
+    z = torch.zeros_like(tbest)
+    return Hit(t=tbest, n=_flip_against(tb.normal[idx], d), u=z, v=z,
                mat=tb.mat[idx], hit=hit)
 
 
@@ -275,8 +302,8 @@ def intersect_triangles(tb, o, d, tmin, tmax) -> Hit:
     valid = ((det.abs() >= 1e-8) & (u >= 0.0) & (u <= 1.0)
              & (v >= 0.0) & (u + v <= 1.0) & (t >= tmin) & (t <= tmax))
     tbest, idx, hit = _first_min(torch.where(valid, t, INF), tb.mask)
-    return Hit(t=tbest, n=_flip_against(tb.n[idx], d), mat=tb.mat[idx],
-               hit=hit)
+    return Hit(t=tbest, n=_flip_against(tb.n[idx], d), u=_pick(u, idx),
+               v=_pick(v, idx), mat=tb.mat[idx], hit=hit)
 
 
 INTERSECTORS = (("spheres", intersect_spheres), ("boxes", intersect_boxes),
@@ -288,12 +315,13 @@ INTERSECTORS = (("spheres", intersect_spheres), ("boxes", intersect_boxes),
 def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
                     lod: bool = False, fine: bool = False,
                     presort: bool = True, impl=None) -> Hit:
-    """Nearest hit across every primitive table, then the cluster mesh.
+    """Nearest hit across every primitive table, then the BVH mesh, then
+    the cluster mesh.
 
-    The primitives' best t (+1e-3) clips the mesh sweep's tmax. The mesh
-    set follows the population: ``lod`` and ``shadow`` -> the shadow proxy
-    set, ``lod`` -> the LOD proxy set, ``fine`` -> the fine proxy set, each
-    only when the scene has it; the proxy sets start at
+    The primitives' best t (+1e-3) clips both mesh sweeps' tmax. The
+    cluster set follows the population: ``lod`` and ``shadow`` -> the
+    shadow proxy set, ``lod`` -> the LOD proxy set, ``fine`` -> the fine
+    proxy set, each only when the scene has it; the proxy sets start at
     ``max(tmin, t_bias)``. ``shadow`` queries run in any-hit mode when
     every mesh material is opaque or the scene's shadows are binary.
     ``presort`` bins the rays before the sweep; ``impl`` picks the sweep
@@ -304,10 +332,15 @@ def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
     for name, fn in INTERSECTORS:
         h = merge(h, fn(getattr(scene, name), o, d, tmin, tmax))
     mc = scene.mesh_clusters
+    if scene.mesh is None and mc is None:
+        return h
+    t_clip = torch.minimum(_col(tmax, o)[:, 0], h.t + 1e-3)
+    if scene.mesh is not None:
+        from .mesh_bvh import intersect_mesh
+        h = merge(h, intersect_mesh(scene.mesh, o, d, tmin, t_clip))
     if mc is None:
         return h
     from .mesh_clusters import intersect_clusters
-    t_clip = torch.minimum(_col(tmax, o)[:, 0], h.t + 1e-3)
     mc_tmin = tmin
     proxy = None
     if lod and shadow and scene.mesh_clusters_shadow is not None:

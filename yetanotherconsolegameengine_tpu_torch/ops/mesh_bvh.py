@@ -1,0 +1,320 @@
+"""Triangle-mesh BVH: host binned-SAH build and the lockstep skip-link walk.
+
+Port of ``yetanotherconsolegameengine_tpu/ops/mesh_bvh.py``. Nodes are
+flattened in DFS pre-order with skip links, so every ray carries one
+cursor: a round gathers the cursor's fused node row (AABB, skip link,
+triangle count and the leaf's ``LEAF_K`` triangles inline), slab-tests it
+against the ray's best t, tests a leaf's triangles with double-sided
+Möller–Trumbore, and moves the cursor to the first child (an internal
+node whose box is hit) or along the skip link. A finished ray's cursor is
+``n_nodes``; later rounds leave it there and change nothing.
+
+``build_mesh_bvh`` is the JAX package's numpy binned-SAH build, returning
+tensors. ``intersect_mesh`` is torch code on the rays' device: the walk
+waits on the host only every ``CHECK_EVERY`` rounds to see whether rays are
+still walking, and once at most a quarter of a batch is, it gathers the
+walking lanes (``nonzero``) into a narrower batch and walks on there, as the
+JAX code narrows to P/4 and P/16. Per-lane arithmetic does not depend on
+the other lanes, so the result equals the uncompacted walk bit for bit.
+The LBVH that the scene builder makes (ops/lbvh.py) has the same layout.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..scene._tensors import Tensors
+from .intersect import INF, Hit, _col, _safe_div, cross3, dot3
+
+LEAF_K = 4          # triangles per leaf (and per node row)
+SAH_BINS = 16
+# Rounds between host checks for rays still walking.
+CHECK_EVERY = 8
+# Narrow a batch of at least this many lanes once at most a quarter of it
+# is still walking.
+COMPACT_MIN = 1024
+
+# Work counters of the walk (sweeps, rounds, host waits, compactions), for
+# the frame profiler; ``STATS.clear()`` resets them.
+STATS = collections.Counter()
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshBVH(Tensors):
+    """Flattened BVH plus leaf-sorted SoA triangles (padded).
+
+    Node i: internal -> first child i + 1, ``skip[i]`` jumps over the
+    subtree; leaf -> ``tri_start``/``tri_count`` index the triangles.
+    ``n_nodes`` is the "done" cursor."""
+
+    bmin: torch.Tensor       # (N, 3)
+    bmax: torch.Tensor       # (N, 3)
+    skip: torch.Tensor       # (N,) i32
+    tri_start: torch.Tensor  # (N,) i32
+    tri_count: torch.Tensor  # (N,) i32, 0 for internal nodes
+    a: torch.Tensor          # (T, 3)
+    e1: torch.Tensor         # (T, 3)
+    e2: torch.Tensor         # (T, 3)
+    n: torch.Tensor          # (T, 3) unit geometric normals
+    mat: torch.Tensor        # (T,) i32
+
+    @property
+    def n_nodes(self) -> int:
+        return self.bmin.shape[0]
+
+    @property
+    def n_tris(self) -> int:
+        return self.a.shape[0]
+
+
+def _pad_to(arr: np.ndarray, n: int) -> np.ndarray:
+    pad = [(0, n - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1)
+    return np.pad(arr, pad)
+
+
+def build_mesh_bvh(a, b, c, mat) -> MeshBVH:
+    """Binned-SAH build over (T, 3) vertex arrays, on the host."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    c = np.asarray(c, np.float32)
+    mat = np.asarray(mat, np.int32)
+    T = a.shape[0]
+    tmin = np.minimum(np.minimum(a, b), c)
+    tmax = np.maximum(np.maximum(a, b), c)
+    cent = (tmin + tmax) * 0.5
+
+    nodes = []  # dicts: bmin, bmax, left, right, start, count, axis
+    order = np.arange(T)
+
+    def make_node(lo, hi):
+        nodes.append(dict(bmin=None, bmax=None, left=-1, right=-1,
+                          start=lo, count=hi - lo, axis=0))
+        return len(nodes) - 1
+
+    root = make_node(0, T)
+    stack = [root]
+    while stack:
+        ni = stack.pop()
+        nd = nodes[ni]
+        lo, hi = nd["start"], nd["start"] + nd["count"]
+        idx = order[lo:hi]
+        nd["bmin"], nd["bmax"] = tmin[idx].min(axis=0), tmax[idx].max(axis=0)
+        count = hi - lo
+        if count <= LEAF_K:
+            continue
+        cb_min = cent[idx].min(axis=0)
+        ext = cent[idx].max(axis=0) - cb_min
+        best = (np.inf, -1, -1)  # (cost, axis, split_bin)
+        bins_of = {}
+        for ax in range(3):
+            if ext[ax] <= 1e-12:
+                continue
+            scale = SAH_BINS * (1.0 - 1e-6) / ext[ax]
+            bins = np.minimum(((cent[idx, ax] - cb_min[ax]) * scale)
+                              .astype(np.int64), SAH_BINS - 1)
+            bins_of[ax] = bins
+            cnt = np.bincount(bins, minlength=SAH_BINS)
+            bin_min = np.full((SAH_BINS, 3), np.inf, np.float32)
+            bin_max = np.full((SAH_BINS, 3), -np.inf, np.float32)
+            for k in range(SAH_BINS):
+                sel = bins == k
+                if sel.any():
+                    bin_min[k] = tmin[idx[sel]].min(axis=0)
+                    bin_max[k] = tmax[idx[sel]].max(axis=0)
+
+            def area_sweep(bm, bx, cn):
+                run_min = np.minimum.accumulate(bm, axis=0)
+                run_max = np.maximum.accumulate(bx, axis=0)
+                d = np.maximum(run_max - run_min, 0.0)
+                area = d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+                return area, np.cumsum(cn)
+
+            area_l, cnt_l = area_sweep(bin_min, bin_max, cnt)
+            area_r, cnt_r = area_sweep(bin_min[::-1], bin_max[::-1], cnt[::-1])
+            area_r, cnt_r = area_r[::-1], cnt_r[::-1]
+            for k in range(SAH_BINS - 1):
+                nl, nr = cnt_l[k], cnt_r[k + 1]
+                if nl == 0 or nr == 0:
+                    continue
+                cost = area_l[k] * nl + area_r[k + 1] * nr
+                if cost < best[0]:
+                    best = (cost, ax, k)
+        if best[1] < 0:
+            # Degenerate: median split on the longest axis.
+            ax = int(np.argmax(ext))
+            sort = np.argsort(cent[idx, ax], kind="stable")
+            order[lo:hi] = idx[sort]
+            mid = lo + count // 2
+        else:
+            ax, k = best[1], best[2]
+            go_left = bins_of[ax] <= k
+            order[lo:hi] = np.concatenate([idx[go_left], idx[~go_left]])
+            mid = lo + int(go_left.sum())
+        nd["axis"] = ax
+        li = make_node(lo, mid)
+        ri = make_node(mid, hi)
+        nd["left"], nd["right"] = li, ri
+        nd["count"] = 0
+        stack.append(ri)
+        stack.append(li)
+
+    # Flatten in DFS pre-order with skip links.
+    N = len(nodes)
+    f_bmin = np.zeros((N, 3), np.float32)
+    f_bmax = np.zeros((N, 3), np.float32)
+    f_skip = np.zeros(N, np.int32)
+    f_start = np.zeros(N, np.int32)
+    f_count = np.zeros(N, np.int32)
+    i = 0
+    stack2 = [(root, N)]
+    while stack2:
+        ni, skip_to = stack2.pop()
+        nd = nodes[ni]
+        f_bmin[i], f_bmax[i] = nd["bmin"], nd["bmax"]
+        f_skip[i] = skip_to
+        if nd["left"] < 0:
+            f_start[i] = nd["start"]
+            f_count[i] = nd["count"]
+        else:
+            # The left child follows at i + 1 and skips to the right child.
+            right_at = i + 1 + _subtree_size(nodes, nd["left"])
+            stack2.append((nd["right"], skip_to))
+            stack2.append((nd["left"], right_at))
+        i += 1
+
+    a_s, b_s, c_s, m_s = a[order], b[order], c[order], mat[order]
+    e1 = b_s - a_s
+    e2 = c_s - a_s
+    nrm = np.cross(e1, e2)
+    nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-20)
+    Tp = T + LEAF_K  # the tail keeps start..start+K gathers in bounds
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    return MeshBVH(bmin=t(f_bmin), bmax=t(f_bmax), skip=t(f_skip),
+                   tri_start=t(f_start), tri_count=t(f_count),
+                   a=t(_pad_to(a_s, Tp)), e1=t(_pad_to(e1, Tp)),
+                   e2=t(_pad_to(e2, Tp)), n=t(_pad_to(nrm, Tp)),
+                   mat=t(_pad_to(m_s, Tp)))
+
+
+def _subtree_size(nodes, ni) -> int:
+    total = 0
+    st = [ni]
+    while st:
+        nd = nodes[st.pop()]
+        total += 1
+        if nd["left"] >= 0:
+            st.append(nd["left"])
+            st.append(nd["right"])
+    return total
+
+
+def node_rows(bvh: MeshBVH) -> torch.Tensor:
+    """(N, 8 + 13 * LEAF_K) f32 node rows: bmin, bmax, skip, count, then
+    the leaf's ``LEAF_K`` triangles inline (a, e1, e2, n, mat each);
+    internal nodes carry triangles that their zero count masks."""
+    head = torch.cat([bvh.bmin, bvh.bmax, bvh.skip.float()[:, None],
+                      bvh.tri_count.float()[:, None]], 1)
+    tri_rows = torch.cat([bvh.a, bvh.e1, bvh.e2, bvh.n,
+                          bvh.mat.float()[:, None]], 1)
+    k = torch.arange(LEAF_K, device=head.device)
+    ti = bvh.tri_start.long()[:, None] + k[None]
+    return torch.cat([head, tri_rows[ti].reshape(-1, LEAF_K * 13)], 1)
+
+
+def _walk(rows: torch.Tensor, st: dict, n_nodes: int) -> None:
+    """One lockstep round on the lanes of ``st``, in place."""
+    node, t, o, d, inv, t_lo = (st[k] for k in ("node", "t", "o", "d",
+                                                "inv", "tlo"))
+    active = node < n_nodes
+    row = rows[torch.clamp(node, max=n_nodes - 1)]
+    ta = (row[:, 0:3] - o) * inv
+    tb = (row[:, 3:6] - o) * inv
+    t0 = torch.minimum(ta, tb).amax(1)
+    t1 = torch.maximum(ta, tb).amin(1)
+    box_hit = active & (t0 <= t1) & (t1 >= t_lo) & (t0 <= t)
+    count = row[:, 7]
+    is_leaf = count > 0.0
+    tri = row[:, 8:].reshape(-1, LEAF_K, 13)
+    dd = d[:, None, :].expand(-1, LEAF_K, -1)
+    e1, e2 = tri[..., 3:6], tri[..., 6:9]
+    h = cross3(dd, e2)
+    det = dot3(e1, h)
+    inv_det = _safe_div(torch.ones_like(det), det)
+    s = o[:, None, :] - tri[..., 0:3]
+    u = dot3(s, h) * inv_det
+    q = cross3(s, e1)
+    v = dot3(dd, q) * inv_det
+    tt = dot3(e2, q) * inv_det
+    k = torch.arange(LEAF_K, device=o.device, dtype=torch.float32)
+    valid = ((box_hit & is_leaf)[:, None] & (k[None] < count[:, None])
+             & (det.abs() >= 1e-8) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+             & (u + v <= 1.0) & (tt >= t_lo[:, None]) & (tt < t[:, None]))
+    tt = torch.where(valid, tt, INF)
+    # The first of equal minima over the K in-row triangles.
+    kk = tt.argmin(1, keepdim=True)
+    t_leaf = tt.gather(1, kk)[:, 0]
+    better = t_leaf < t
+    win = tri.gather(1, kk[..., None].expand(-1, 1, 13))[:, 0]
+    st["t"] = torch.where(better, t_leaf, t)
+    st["wn"] = torch.where(better[:, None], win[:, 9:12], st["wn"])
+    st["wm"] = torch.where(better, win[:, 12], st["wm"])
+    st["u"] = torch.where(better, u.gather(1, kk)[:, 0], st["u"])
+    st["v"] = torch.where(better, v.gather(1, kk)[:, 0], st["v"])
+    nxt = torch.where(box_hit & ~is_leaf, node + 1, row[:, 6].long())
+    st["node"] = torch.where(active, nxt, node)
+
+
+_OUT = ("node", "t", "wn", "wm", "u", "v")
+
+
+def intersect_mesh(bvh: MeshBVH, o, d, tmin, tmax,
+                   compact: bool = True) -> Hit:
+    """Nearest hit over the BVH's triangles. o/d: (P, 3); tmin/tmax scalar
+    or (P,). Double-sided, the normal flipped against the ray; a hit needs
+    ``tmin <= t < tmax``, and a later leaf only wins when strictly nearer.
+    ``compact=False`` walks every lane to the end (the reference the
+    compacted walk equals)."""
+    P = o.shape[0]
+    n_nodes = bvh.n_nodes
+    rows = node_rows(bvh)
+    t_hi = _col(tmax, o)[:, 0]
+    z = torch.zeros(P, device=o.device)
+    full = dict(node=torch.zeros(P, dtype=torch.int64, device=o.device),
+                t=t_hi, wn=torch.zeros((P, 3), device=o.device), wm=z, u=z,
+                v=z, o=o, d=d, inv=_safe_div(torch.ones_like(d), d),
+                tlo=_col(tmin, o)[:, 0])
+    STATS["sweeps"] += 1
+    cur, lanes = full, None
+    while True:
+        for _ in range(CHECK_EVERY):
+            _walk(rows, cur, n_nodes)
+        STATS["rounds"] += CHECK_EVERY
+        STATS["waits"] += 1
+        walking = cur["node"] < n_nodes
+        n_walking = int(walking.sum())
+        if n_walking == 0:
+            break
+        width = cur["node"].shape[0]
+        if compact and width >= COMPACT_MIN and 4 * n_walking <= width:
+            keep = torch.nonzero(walking)[:, 0]
+            if lanes is not None:
+                _write_back(full, cur, lanes)
+            cur = {k: x[keep] for k, x in cur.items()}
+            lanes = keep if lanes is None else lanes[keep]
+            STATS["compactions"] += 1
+    if lanes is not None:
+        _write_back(full, cur, lanes)
+    hit = full["t"] < t_hi
+    nrm = full["wn"]
+    nrm = torch.where((dot3(nrm, d) >= 0.0)[:, None], -nrm, nrm)
+    return Hit(t=torch.where(hit, full["t"], INF), n=nrm, u=full["u"],
+               v=full["v"], mat=full["wm"].to(torch.int32), hit=hit)
+
+
+def _write_back(full: dict, cur: dict, lanes) -> None:
+    for k in _OUT:
+        full[k] = full[k].index_copy(0, lanes, cur[k])

@@ -269,14 +269,6 @@ def _sort_keys(o, d, active, bounds):
     return torch.where(active, key, 1 << 29)
 
 
-@dataclasses.dataclass(frozen=True)
-class ClusterHit(Hit):
-    """A ``Hit`` with the winning triangle's barycentrics."""
-
-    u: torch.Tensor = None   # (P,)
-    v: torch.Tensor = None   # (P,)
-
-
 def _column(x, P, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32,
                            device=device).expand(P).contiguous()
@@ -358,7 +350,7 @@ def intersect_clusters(mc: MeshClusters, o, d, tmin, tmax,
     if any_hit:
         z = torch.zeros_like(t_w)
         mat0 = mc.tri_rows[0, 12].to(torch.int32)
-        res = ClusterHit(t=torch.where(hit, t_w, INF), n=-d, u=z, v=z,
+        res = Hit(t=torch.where(hit, t_w, INF), n=-d, u=z, v=z,
                          mat=torch.where(hit, mat0, 0), hit=hit)
     else:
         flat = torch.where(hit, win, 0).long()
@@ -378,7 +370,7 @@ def intersect_clusters(mc: MeshClusters, o, d, tmin, tmax,
         u = torch.clamp(torch.where(ok, u, 0.0), 0.0, 1.0)
         v = torch.clamp(torch.where(ok, v, 0.0), 0.0, 1.0)
         n = torch.where((dot3(n, d) < 0.0)[:, None], n, -n)
-        res = ClusterHit(t=torch.where(hit, t, INF), n=n, u=u, v=v,
+        res = Hit(t=torch.where(hit, t, INF), n=n, u=u, v=v,
                          mat=row[:, 12].to(torch.int32), hit=hit)
     if stats:
         return res, (steps, lens)

@@ -12,12 +12,17 @@ the zero-intensity light gate, and the sky gradient.
 
 For primitive scenes the per-pixel loop of ``ops/csrc/trace_kernel.cu``
 computes the same thing in the same arithmetic order; this module is what
-it is held against. Scenes with a cluster mesh trace here on every device,
-with the mesh parts of the JAX module: round 0 sweeps the fine proxy set
-and later rounds the LOD set, shadow rays the shadow set in light-major
-lane order, and between rounds the wavefront compacts to its active lanes
-(``WAVEFRONT_COMPACTION``). ``impl`` picks the mesh sweep: "kernel" (K3)
-or "plain"; None picks from the rays' device (``devices.resolve_impl``).
+it is held against. Every scene the trace kernel does not take
+(``trace_kernel.scene_fits``: meshes, textures, tables too large for a
+block) traces here on every device. Surfaces are shaded from the hit's
+u, v, the scene's texture bank and a point just inside the surface for
+the per-cell tint. Cluster-mesh scenes take the mesh parts of the JAX
+module: round 0 sweeps the fine proxy set and later rounds the LOD set,
+shadow rays the shadow set in light-major lane order, and between rounds
+the wavefront compacts to its active lanes (``WAVEFRONT_COMPACTION``);
+BVH-mesh and primitive scenes do neither, as in the JAX module. ``impl``
+picks the cluster sweep: "kernel" (K3) or "plain"; None picks from the
+rays' device (``devices.resolve_impl``).
 """
 
 from __future__ import annotations
@@ -234,7 +239,9 @@ def trace_all(scene, o0, d0, rng0, cfg: RenderConfig,
                               impl=impl)
         m = gather_material(scene.materials, hit.mat)
         p = o + hit.t[:, None] * d
-        base_albedo = sample_albedo(m, p)
+        uv = torch.stack([hit.u, hit.v], -1)
+        base_albedo = sample_albedo(m, p, uv, scene.textures,
+                                    tint_pos=p + d * 1e-3)
 
         # ---- miss: vertical sky gradient ---------------------------------
         miss = active & ~hit.hit

@@ -5,12 +5,17 @@ Port of ``yetanotherconsolegameengine_tpu/ops/pallas_trace.py``
 the whole path trace of every pixel, producing the (12, H, W) f32
 G-buffer in ``PLANES`` order. The CUDA source is ``csrc/trace_kernel.cu``.
 
-``pack_scene`` flattens a scene's tables once per scene into one f32 row
-buffer plus an int32 header of row counts and offsets, which the kernel
-reads at run time (the TPU kernel baked the tables into its program).
-``trace_planes`` launches the kernel for a CUDA scene; given a scene on the
-CPU it runs ``trace_planes_plain``, the same computation in plain PyTorch
-(``ops/trace.py``), because no kernel exists there.
+``scene_fits`` decides, before any launch, whether a scene takes the
+kernel: a scene without a mesh, textures or per-cell tint whose
+table and path stack fit in one block's shared memory (the JAX package's
+``pallas_trace.scene_fits``, without its 160-row unroll budget, a TPU
+compile limit). Every other scene traces through the wavefront
+(``ops/trace.py``). ``pack_scene`` flattens a scene's tables once per
+scene into one f32 row buffer plus an int32 header of row counts and
+offsets, which the kernel reads at run time (the TPU kernel baked the
+tables into its program). ``trace_planes`` launches the kernel for a CUDA
+scene; given a scene on the CPU it runs ``trace_planes_plain``, the same
+computation in plain PyTorch, because no kernel exists there.
 """
 
 from __future__ import annotations
@@ -21,9 +26,10 @@ import math
 import numpy as np
 import torch
 
-from ..config import RenderConfig
+from ..config import DEFAULT_CONFIG, RenderConfig
 from ..core import sampler
 from ..core.camera import make_jittered_rays
+from ..scene.materials import PROC_CELL_TINT
 from ..scene.tables import PRIMITIVE_TABLES, SceneData
 from . import kernels
 from .trace import stack_slots, trace_all
@@ -67,6 +73,33 @@ def _rows(tb, fields) -> np.ndarray:
         a = getattr(tb, f).cpu().numpy()[mask].astype(np.float32)
         cols.append(a.reshape(a.shape[0], a.shape[1] if a.ndim == 2 else 1))
     return np.concatenate(cols, axis=1)
+
+
+def table_len(scene: SceneData) -> int:
+    """Floats of ``pack_scene``'s table for ``scene``: the valid rows of
+    every table, the materials and the globals."""
+    n = 0
+    for name in PRIMITIVE_TABLES + ("lights",):
+        tb = getattr(scene, name)
+        width = sum(getattr(tb, f).shape[1] if getattr(tb, f).dim() == 2
+                    else 1 for f in _ROW_FIELDS[name])
+        n += int(tb.mask.sum()) * width
+    m = scene.materials
+    n += sum(getattr(m, f)[0].numel() for f in _MAT_FIELDS) \
+        * m.albedo.shape[0]
+    return n + 10   # ambient color and intensity, sky top and bottom
+
+
+def scene_fits(scene: SceneData, cfg: RenderConfig = DEFAULT_CONFIG) -> bool:
+    """Does the trace kernel take this scene? It traces primitive tables
+    with solid and checker surfaces only, and needs the packed table and
+    the path stack in one block's shared memory."""
+    if (scene.mesh is not None or scene.mesh_clusters is not None
+            or scene.textures is not None):
+        return False
+    if bool((scene.materials.proc == PROC_CELL_TINT).any()):
+        return False
+    return shared_bytes(table_len(scene), stack_slots(cfg)) <= SHARED_LIMIT
 
 
 def pack_scene(scene: SceneData) -> PackedScene:

@@ -1,17 +1,23 @@
 """The frame engine: frame state, frame step, frame scan, renderer.
 
 Port of ``yetanotherconsolegameengine_tpu/render/renderer.py`` for static
-primitive and cluster-mesh scenes. A frame traces at ``hi_w = fb_w * ss``
-by ``hi_h = fb_h * 2 * ss`` pixels (two pixels per '▀' character cell) and
-returns per-cell colors and ANSI-256 indices.
+scenes: primitive tables, meshes and textures, video textures included. A
+frame traces at ``hi_w = fb_w * ss`` by ``hi_h = fb_h * 2 * ss`` pixels
+(two pixels per '▀' character cell) and returns per-cell colors and
+ANSI-256 indices.
 
-On a CUDA device a primitive scene's frame is two kernel launches: the
-trace kernel writes the (12, H, W) G-buffer and the post kernel turns it
-into blended history, tone-mapped colors and ANSI indices
-(ops/trace_kernel.py, post_kernel.py). A scene with a cluster mesh traces
-through the PyTorch wavefront (``trace_mesh_planes``: ops/trace.py, whose
-mesh sweeps launch the cluster kernel K3) and posts through the same post
-kernel. On the CPU the same stages run as plain PyTorch. ``impl`` selects
+``set_scene`` routes by ``trace_kernel.scene_fits``, before any launch, as
+the JAX renderer does. On a CUDA device a scene that fits is two kernel
+launches a frame: the trace kernel writes the (12, H, W) G-buffer and the
+post kernel turns it into blended history, tone-mapped colors and ANSI
+indices (ops/trace_kernel.py, post_kernel.py). Every other scene (meshes,
+textures, tables too large for the kernel) traces through the PyTorch
+wavefront (``trace_wavefront_planes``: ops/trace.py, whose cluster sweeps
+launch the cluster kernel K3 and whose BVH sweeps walk in torch) and
+posts through the same post kernel every frame. On the CPU the same
+stages run as plain PyTorch. A scene with video textures resets TAA
+history every frame, and its reader slots are refreshed once per
+``render_many`` batch. ``impl`` selects
 explicitly: "kernel" (the default on CUDA; refused on the CPU) or "plain"
 (the default on the CPU). The renderer and ``init_state`` run on the card
 unless ``device="cpu"`` is given (``devices.py``). Nothing falls back from
@@ -111,15 +117,16 @@ def frame_inputs(cams: CameraPose, state: FrameState, hi_w: int, hi_h: int,
     return params, frames, resets
 
 
-def trace_mesh_planes(scene: SceneData, params_row: torch.Tensor, frame,
-                      width: int, height: int, cfg: RenderConfig,
-                      impl: Optional[str] = None) -> torch.Tensor:
-    """The (12, H, W) G-buffer of a cluster-mesh scene: jittered rays and
-    per-pixel seeds, then ``trace.trace_all``. With
-    ``cfg.block_order_primary`` and ``width % 16 == 0`` the lanes run in
-    16x16 pixel-block order (each 256-lane tile of the primary sweep is one
-    square block, swept unsorted), rows padded to a multiple of 16 with
-    dead lanes that the G-buffer, and so ``rays_traced``, leaves out.
+def trace_wavefront_planes(scene: SceneData, params_row: torch.Tensor, frame,
+                           width: int, height: int, cfg: RenderConfig,
+                           impl: Optional[str] = None) -> torch.Tensor:
+    """The (12, H, W) G-buffer of a scene traced by the wavefront:
+    jittered rays and per-pixel seeds, then ``trace.trace_all``. For a
+    cluster-mesh scene with ``cfg.block_order_primary`` and
+    ``width % 16 == 0`` the lanes run in 16x16 pixel-block order (each
+    256-lane tile of the primary sweep is one square block, swept
+    unsorted), rows padded to a multiple of 16 with dead lanes that the
+    G-buffer, and so ``rays_traced``, leaves out.
     ``frame`` is an int or a 0-d integer tensor."""
     dev = params_row.device
     impl = resolve_impl(impl, dev)
@@ -127,7 +134,8 @@ def trace_mesh_planes(scene: SceneData, params_row: torch.Tensor, frame,
     px = torch.arange(width, device=dev)[None].expand(height, width)
     py = torch.arange(height, device=dev)[:, None].expand(height, width)
     seed = sampler.per_frame_seed(px, py, frame, cfg.seed_salt)
-    if not (cfg.block_order_primary and width % BLOCK == 0):
+    if not (cfg.block_order_primary and scene.mesh_clusters is not None
+            and width % BLOCK == 0):
         res = trace.trace_all(scene, o.reshape(-1, 3), d.reshape(-1, 3),
                               seed.reshape(-1), cfg, impl)
         return trace_kernel.result_planes(res, width, height)
@@ -160,16 +168,16 @@ def frame_step(packed, cams: CameraPose, inputs, row: int,
                cfg: RenderConfig = DEFAULT_CONFIG,
                impl: Optional[str] = None):
     """Render frame ``row`` of a batch whose ``frame_inputs`` are
-    ``inputs``. ``packed``: a ``trace_kernel.PackedScene`` of a primitive
-    scene, or the ``SceneData`` of a cluster-mesh scene. ``impl`` (None:
+    ``inputs``. ``packed``: a ``trace_kernel.PackedScene`` of a scene the
+    trace kernel takes, or the ``SceneData`` of any other. ``impl`` (None:
     from the device) picks kernels or plain versions. Returns
     (FrameOutput, new FrameState)."""
     impl = resolve_impl(impl, cams.pos.device)
     hi_w, hi_h = fb_w * ss, fb_h * 2 * ss
     params, frames, resets = inputs
     if isinstance(packed, SceneData):
-        gbuf = trace_mesh_planes(packed, params[row], frames[row], hi_w,
-                                 hi_h, cfg, impl)
+        gbuf = trace_wavefront_planes(packed, params[row], frames[row],
+                                      hi_w, hi_h, cfg, impl)
     elif impl == "kernel":
         gbuf = trace_kernel.trace_planes(packed, params, frames, row,
                                          hi_w, hi_h, cfg)
@@ -219,6 +227,9 @@ def frame_scan(packed, cams: CameraPose, state: FrameState, fb_w: int,
     dev = cams.pos.device
     impl = resolve_impl(impl, dev)
     inputs = frame_inputs(cams, state, fb_w * ss, fb_h * 2 * ss, cfg)
+    if isinstance(packed, SceneData) and packed.has_dynamic_textures:
+        # A live texture changes every frame: no history to blend.
+        inputs = inputs[:2] + (torch.ones_like(inputs[2]),)
     shapes = [(n, fb_h, fb_w)] * 2 + ([(n, fb_h, fb_w, 3)] * 2
                                        if stack_rgb else [])
     grids = tuple(torch.empty(s, dtype=torch.uint8, device=dev)
@@ -257,11 +268,17 @@ class RaytraceRenderer:
             self.fov_deg = float(fov_deg)
 
     def set_scene(self, scene: SceneData, reset_camera: bool = True):
+        """Move ``scene`` to the render device (an LBVH is rebuilt there)
+        and route it: the trace kernel's packed tables when it fits
+        (``trace_kernel.scene_fits``), else the wavefront."""
         scene = scene.to(self.device)
-        # A cluster-mesh scene traces through the wavefront, never through
-        # the trace kernel's packed tables.
-        self.packed = (scene if scene.mesh_clusters is not None
-                       else trace_kernel.pack_scene(scene))
+        if scene.has_dynamic_textures:
+            # The reader slots are written in place: own the bank.
+            scene = dataclasses.replace(scene,
+                                        textures=scene.textures.clone())
+        self.scene = scene
+        self.packed = (trace_kernel.pack_scene(scene)
+                       if trace_kernel.scene_fits(scene, self.cfg) else scene)
         self.state = init_state(self.fb_w, self.fb_h, self.ss, self.device)
         if reset_camera:
             d = scene.defaults
@@ -278,6 +295,20 @@ class RaytraceRenderer:
         self.fb_w, self.fb_h = fb_w, fb_h
         self.state = init_state(fb_w, fb_h, self.ss, self.device)
 
+    def _update_video_textures(self) -> None:
+        """Write each live reader's newest frame into its slot of the
+        scene's texture bank."""
+        if not self.scene.has_dynamic_textures:
+            return
+        from ..video import textures as vidtex
+        for tid, reader in vidtex.readers_for(self.scene.name):
+            frame = reader.try_get_frame()
+            if frame is None:
+                continue
+            img = torch.from_numpy(vidtex.frame_to_texture(frame))
+            h, w = img.shape[:2]
+            self.scene.textures[tid, :h, :w].copy_(img)
+
     def render(self) -> FrameOutput:
         _, out = self.render_many(1)
         return out
@@ -286,6 +317,7 @@ class RaytraceRenderer:
         """Render ``n`` frames; ``poses``: optional [(pos, yaw, pitch)] per
         frame. Returns ((fg_u8, bg_u8[, top_u8, bot_u8]) stacked
         (n, fb_h, fb_w[, 3]), the last frame's FrameOutput)."""
+        self._update_video_textures()
         if poses is None:
             poses = [(self.cam_pos, self.yaw, self.pitch)] * n
         cams = stack_poses(poses, self.fov_deg, self.device)

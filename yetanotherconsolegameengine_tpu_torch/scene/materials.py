@@ -4,14 +4,15 @@ Port of ``yetanotherconsolegameengine_tpu/scene/materials.py``. The host
 ``Material``/``MaterialBank`` are the same numpy-side records; the device
 ``MaterialTable`` holds torch tensors. ``gather_material`` is a plain row
 gather (the JAX package's one-hot matmul select exists because a TPU
-gather is slow). This slice evaluates the solid and world-XZ checker
-procedural surfaces; texture and per-cell tint materials raise.
+gather is slow). ``sample_albedo`` evaluates every procedural surface:
+solid, world-XZ checker, texture (bilinear from the scene's texture bank)
+and per-cell tint.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,19 +22,16 @@ from ._tensors import Tensors
 PROC_SOLID = 0
 PROC_CHECKER = 1
 PROC_TEXTURE = 2
+# Per-voxel-cell albedo tint: albedo x (1 + 0.08 ((hash(cell) % 5) - 2)).
 PROC_CELL_TINT = 3
-
-_PORTED_PROCS = (PROC_SOLID, PROC_CHECKER)
+PROCS = (PROC_SOLID, PROC_CHECKER, PROC_TEXTURE, PROC_CELL_TINT)
 
 
 def check_procs(proc) -> None:
-    """Raise for procedural kinds this port cannot shade yet."""
-    bad = sorted({int(p) for p in np.asarray(proc).reshape(-1)}
-                 - set(_PORTED_PROCS))
+    """Raise for a procedural kind that ``sample_albedo`` does not know."""
+    bad = sorted({int(p) for p in np.asarray(proc).reshape(-1)} - set(PROCS))
     if bad:
-        raise NotImplementedError(
-            f"material proc {bad} (texture / per-cell tint) is not ported: "
-            "ROADMAP.md Queue 1 item 8 (texture bank)")
+        raise ValueError(f"unknown material proc {bad}; known: {PROCS}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,12 +133,75 @@ def gather_material(table: MaterialTable, mat_id: torch.Tensor) -> MaterialTable
                             for f in dataclasses.fields(MaterialTable)})
 
 
-def sample_albedo(mat: MaterialTable, pos: torch.Tensor) -> torch.Tensor:
-    """Solid or world-XZ checker surface color at hit points ``pos``
-    (..., 3); returns (..., 3)."""
+def _i32(x: int) -> int:
+    """A 32-bit pattern as the int32 value it stands for."""
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def sample_albedo(mat: MaterialTable, pos: torch.Tensor,
+                  uv: Optional[torch.Tensor] = None,
+                  textures: Optional[torch.Tensor] = None,
+                  tint_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The procedural surface color at hit points ``pos`` (..., 3) with
+    surface coordinates ``uv`` (..., 2); returns (..., 3).
+
+    ``textures``: the scene's (T, H, W, 3) bank or None. ``tint_pos``: a
+    point nudged inside the surface, so that the per-cell tint resolves
+    the solid cell rather than the face; defaults to ``pos``."""
+    base = mat.albedo
     cx = torch.floor(pos[..., 0] / mat.proc_scale).to(torch.int32)
     cz = torch.floor(pos[..., 2] / mat.proc_scale).to(torch.int32)
     even = ((cx + cz) & 1) == 0
     checker = torch.where(even[..., None], mat.albedo, mat.albedo2)
-    return torch.where((mat.proc == PROC_CHECKER)[..., None], checker,
-                       mat.albedo)
+    out = torch.where((mat.proc == PROC_CHECKER)[..., None], checker, base)
+
+    # Per-cell tint: an int32 hash with wrapping multiplies and arithmetic
+    # shifts; % is Python's (torch.remainder), as in jnp.
+    tp = pos if tint_pos is None else tint_pos
+    q = [torch.floor(tp[..., i] / mat.proc_scale).to(torch.int32)
+         for i in range(3)]
+    hsh = ((q[0] * _i32(0x27D4EB2F)) ^ (q[1] * _i32(0x9E3779B1))
+           ^ (q[2] * _i32(0x85EBCA6B)))
+    hsh = hsh ^ (hsh >> 15)
+    hsh = hsh * _i32(0x165667B1)
+    hsh = hsh ^ (hsh >> 13)
+    variant = torch.remainder(hsh.abs(), 5)
+    tint = 1.0 + 0.08 * (variant.to(torch.float32) - 2.0)
+    out = torch.where((mat.proc == PROC_CELL_TINT)[..., None],
+                      torch.clamp(base * tint[..., None], 0.0, 1.0), out)
+
+    if textures is not None and textures.numel() > 0:
+        tiles = torch.clamp(mat.uv_scale, min=1e-6)
+        tex = _sample_bilinear(textures, torch.clamp(mat.tex_id, min=0),
+                               uv[..., 0] * tiles, uv[..., 1] * tiles)
+        w = torch.clamp(mat.tex_weight, 0.0, 1.0)[..., None]
+        blended = out * (1.0 - w) + tex * w
+        use_tex = ((mat.proc == PROC_TEXTURE) & (mat.tex_id >= 0))[..., None]
+        out = torch.where(use_tex, torch.clamp(blended, 0.0, 1.0), out)
+    return out
+
+
+def _sample_bilinear(textures, tex_id, u, v):
+    """Bilinear sample of the (T, H, W, 3) bank with UV wrap and V flip.
+    Indices are clamped into the bank, as a JAX gather clamps them."""
+    n_tex, th, tw, _ = textures.shape
+    uu = u - torch.floor(u)
+    vv = 1.0 - (v - torch.floor(v))
+    x = uu * (tw - 1)
+    y = vv * (th - 1)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    fx = (x - x0.to(torch.float32))[..., None]
+    fy = (y - y0.to(torch.float32))[..., None]
+    x0 = torch.clamp(x0, 0, tw - 1)
+    y0 = torch.clamp(y0, 0, th - 1)
+    x1 = torch.clamp(x0 + 1, max=tw - 1)
+    y1 = torch.clamp(y0 + 1, max=th - 1)
+    tid = torch.clamp(tex_id.to(torch.int64), max=n_tex - 1)
+    c00 = textures[tid, y0, x0]
+    c10 = textures[tid, y0, x1]
+    c01 = textures[tid, y1, x0]
+    c11 = textures[tid, y1, x1]
+    top = c00 * (1 - fx) + c10 * fx
+    bot = c01 * (1 - fx) + c11 * fx
+    return top * (1 - fy) + bot * fy

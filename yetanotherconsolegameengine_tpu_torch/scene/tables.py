@@ -1,18 +1,22 @@
 """Scene as structure-of-arrays tensor tables.
 
 Port of ``yetanotherconsolegameengine_tpu/scene/tables.py`` for primitive
-scenes and cluster meshes. ``SceneBuilder`` is the same imperative host
+scenes, meshes and textures. ``SceneBuilder`` is the same imperative host
 builder, in numpy only (the JAX one returns jnp arrays), and pads every
 table to the same power-of-two bucket with ``mask=False`` rows, so its
 tables equal the JAX package's element for element. A mesh of at least
 ``CLUSTER_MIN_TRIS`` triangles builds cluster tables (ops/mesh_clusters.py)
 and, by the same routing rules, its fine, LOD and shadow proxy sets
-(scene/lod.py) with composed ``t_bias``. ``SceneData.to(device)`` moves a
-scene to the card. ``scene_from_numpy`` carries a JAX ``SceneData``
-flattened to numpy (see ``SceneData.to_numpy`` for the keys) into the port.
+(scene/lod.py) with composed ``t_bias``; a smaller one builds an LBVH
+(ops/lbvh.py) from its triangle soup, which the scene keeps: moving the
+scene to another device (``SceneData.to``) rebuilds the LBVH there, so on
+the card it is built on the card. Textures form one (T, H, W, 3) bank
+padded to the largest image; a video texture is a bank slot that the
+renderer refreshes from its reader (video/textures.py).
+``scene_from_numpy`` carries a JAX ``SceneData`` flattened to numpy (see
+``SceneData.to_numpy`` for the keys) into the port.
 
-Smaller meshes (the on-device LBVH of the JAX package), voxel worlds and
-textures are not ported yet; a scene that holds one raises
+Voxel worlds are not ported yet; a scene that holds one raises
 ``NotImplementedError`` naming the ROADMAP item.
 """
 
@@ -24,6 +28,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.lbvh import build_lbvh
+from ..ops.mesh_bvh import MeshBVH
 from ..ops.mesh_clusters import (MeshClusters, build_clusters,
                                  gmat_from_jax)
 from ._tensors import Tensors
@@ -31,7 +37,7 @@ from .lod import simplify_soup
 from .materials import Material, MaterialBank, MaterialTable, check_procs
 
 # Meshes of at least this many triangles build cluster tables; smaller ones
-# take the on-device LBVH in the JAX package (not ported).
+# build an LBVH.
 CLUSTER_MIN_TRIS = 16384
 # Secondary-ray (shadow / bounce) LOD proxy budget; built when it reduces
 # the mesh at least 4x.
@@ -45,18 +51,12 @@ PROXY_KC = 512
 CLUSTER_SETS = ("mesh_clusters", "mesh_clusters_lod", "mesh_clusters_fine",
                 "mesh_clusters_shadow")
 _CLUSTER_FIELDS = ("cbmin", "cbmax", "gmat", "tri_rows", "bounds")
-_LBVH_ITEM = ("meshes under 16384 triangles (the on-device LBVH): "
-              "ROADMAP.md Queue 1 item 10b")
+_MESH_FIELDS = tuple(f.name for f in dataclasses.fields(MeshBVH))
 
 PRIMITIVE_TABLES = ("spheres", "boxes", "rects", "cylinders", "disks",
                     "planes", "triangles")
 _VECTORS = ("ambient_color", "ambient_intensity", "bg_top", "bg_bottom")
-_UNPORTED = {
-    "mesh": _LBVH_ITEM,
-    "voxels": "voxel worlds: ROADMAP.md Queue 1 item 11",
-    "textures": "textures: ROADMAP.md Queue 1 item 8",
-    "has_dynamic_textures": "video textures: ROADMAP.md Queue 1 item 8",
-}
+_UNPORTED = {"voxels": "voxel worlds: ROADMAP.md Queue 1 item 11"}
 
 
 def _pad_rows(arr: np.ndarray, n: int) -> np.ndarray:
@@ -167,6 +167,20 @@ class LightTable(Tensors):
     mask: torch.Tensor       # (L,)
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshSoup(Tensors):
+    """The triangles an LBVH is built from (the builder's mesh)."""
+
+    a: torch.Tensor     # (T, 3)
+    b: torch.Tensor     # (T, 3)
+    c: torch.Tensor     # (T, 3)
+    mat: torch.Tensor   # (T,) i32
+
+    def lbvh(self) -> MeshBVH:
+        """The LBVH of these triangles, built on their device."""
+        return build_lbvh(self.a, self.b, self.c, self.mat)
+
+
 _TABLE_TYPES = dict(spheres=SphereTable, boxes=BoxTable, rects=RectTable,
                     cylinders=CylinderTable, disks=DiskTable,
                     planes=PlaneTable, triangles=TriangleTable,
@@ -175,7 +189,8 @@ _TABLE_TYPES = dict(spheres=SphereTable, boxes=BoxTable, rects=RectTable,
 
 @dataclasses.dataclass(frozen=True)
 class SceneData(Tensors):
-    """A primitive-table scene; ``to(device)`` moves every table."""
+    """A scene's tables; ``to(device)`` moves every table (and rebuilds
+    the LBVH on the new device when the scene keeps its mesh soup)."""
 
     materials: MaterialTable
     spheres: SphereTable
@@ -205,10 +220,23 @@ class SceneData(Tensors):
     mesh_clusters_shadow: Optional[MeshClusters] = None
     # Every mesh material opaque? Then shadow sweeps run in any-hit mode.
     mesh_all_opaque: bool = True
+    # The LBVH of a mesh under CLUSTER_MIN_TRIS triangles, and the soup it
+    # was built from (None for a scene carried across from numpy).
+    mesh: Optional[MeshBVH] = None
+    mesh_soup: Optional[MeshSoup] = None
+    # (T, H, W, 3) texture bank; a video texture's slot changes per frame.
+    textures: Optional[torch.Tensor] = None
+    has_dynamic_textures: bool = False
 
     @property
     def device(self) -> torch.device:
         return self.ambient_color.device
+
+    def to(self, device):
+        moved = super().to(device)
+        if self.mesh_soup is not None and moved.device != self.device:
+            moved = dataclasses.replace(moved, mesh=moved.mesh_soup.lbvh())
+        return moved
 
     @property
     def default_pose(self):
@@ -238,7 +266,15 @@ class SceneData(Tensors):
                 for f in _CLUSTER_FIELDS:
                     d[f"{sname}.{f}"] = getattr(mc, f).cpu().numpy()
                 d[f"{sname}.t_bias"] = np.asarray(mc.t_bias, np.float64)
+        if self.mesh is not None:
+            for f in _MESH_FIELDS:
+                d[f"mesh.{f}"] = getattr(self.mesh, f).cpu().numpy()
+        if self.mesh is not None or self.mesh_clusters is not None:
             d["mesh_all_opaque"] = np.asarray(self.mesh_all_opaque)
+        if self.textures is not None:
+            d["textures"] = self.textures.cpu().numpy()
+        if self.has_dynamic_textures:
+            d["has_dynamic_textures"] = np.asarray(True)
         return d
 
 
@@ -259,8 +295,8 @@ def _clusters_from_numpy(d: dict, sname: str) -> Optional[MeshClusters]:
 def scene_from_numpy(d: dict) -> SceneData:
     """Build a ``SceneData`` from the flat numpy dict of ``to_numpy``.
 
-    Raises ``NotImplementedError`` if the dict sets a mesh, voxel or
-    texture field, and ``KeyError`` for a key this format does not know.
+    Raises ``NotImplementedError`` if the dict sets a voxel field, and
+    ``KeyError`` for a key this format does not know.
     """
     for key, what in _UNPORTED.items():
         if d.get(key) is not None and bool(np.any(d[key])):
@@ -271,6 +307,8 @@ def scene_from_numpy(d: dict) -> SceneData:
                               "mesh_all_opaque"}
     known |= {f"{sname}.{f}" for sname in CLUSTER_SETS
               for f in _CLUSTER_FIELDS + ("t_bias",)}
+    known |= {f"mesh.{f}" for f in _MESH_FIELDS}
+    known |= {"textures", "has_dynamic_textures"}
     unknown = set(d) - known - set(_UNPORTED)
     if unknown:
         raise KeyError(f"unknown scene fields {sorted(unknown)}")
@@ -282,6 +320,11 @@ def scene_from_numpy(d: dict) -> SceneData:
     # As the builder derives it: from every material of the bank.
     any_transparent = bool(np.any(np.asarray(d["materials.transparency"])
                                   > 0.0))
+    mesh = None
+    if "mesh.bmin" in d:
+        mesh = MeshBVH(**{f: torch.from_numpy(np.array(d[f"mesh.{f}"]))
+                          for f in _MESH_FIELDS})
+    textures = d.get("textures")
     return SceneData(
         **tables,
         **{k: torch.from_numpy(np.array(d[k], np.float32)) for k in _VECTORS},
@@ -289,6 +332,10 @@ def scene_from_numpy(d: dict) -> SceneData:
         defaults=tuple(float(v) for v in np.asarray(d["defaults"])),
         any_transparent=any_transparent,
         mesh_all_opaque=bool(d.get("mesh_all_opaque", True)),
+        mesh=mesh,
+        textures=(None if textures is None
+                  else torch.from_numpy(np.array(textures, np.float32))),
+        has_dynamic_textures=bool(d.get("has_dynamic_textures", False)),
         **{sname: _clusters_from_numpy(d, sname) for sname in CLUSTER_SETS})
 
 
@@ -307,6 +354,8 @@ class SceneBuilder:
         self._triangles: list = []
         self._lights: list = []
         self._mesh_tris: list = []   # (tris (N, 3, 3), mat_id)
+        self.textures: list = []     # (H, W, 3) float32 images
+        self.has_dynamic_textures = False
         self.ambient_color = (1.0, 1.0, 1.0)
         self.ambient_intensity = 0.075
         self.bg_top = (0.6, 0.8, 1.0)
@@ -362,6 +411,26 @@ class SceneBuilder:
         mid = self._mid(mat)
         self._mesh_tris.append((np.asarray(tris, np.float32), mid))
 
+    def add_texture(self, image) -> int:
+        """Register a (H, W, 3) float32 linear image; returns its id."""
+        self.textures.append(np.asarray(image, np.float32))
+        return len(self.textures) - 1
+
+    def add_video_texture(self, reader) -> int:
+        """Bind a frame reader (``video/readers.py``) to a texture slot that
+        the renderer refreshes from it; the slot starts with the reader's
+        current frame (black when it has none)."""
+        from ..video import textures as vidtex
+        frame = reader.try_get_frame()
+        if frame is not None:
+            img = vidtex.frame_to_texture(frame)
+        else:
+            img = np.zeros((reader.height, reader.width, 3), np.float32)
+        tid = self.add_texture(img)
+        self.has_dynamic_textures = True
+        vidtex.register(self.name, tid, reader)
+        return tid
+
     def add_light(self, pos, color, intensity):
         self._lights.append((tuple(pos), tuple(color), float(intensity)))
 
@@ -372,8 +441,10 @@ class SceneBuilder:
         self.default_fov = float(fov)
 
     def _mesh_sets(self) -> dict:
-        """Cluster tables of the mesh and its proxy sets, by the JAX
-        package's routing rules (scene/tables.py:436-477 there)."""
+        """The mesh's acceleration tables, by the JAX package's routing
+        rules (scene/tables.py:428-487 there): under ``CLUSTER_MIN_TRIS``
+        triangles an LBVH (and the soup it is rebuilt from), else cluster
+        tables and the proxy sets."""
         tris = np.concatenate([t.reshape(-1, 3, 3)
                                for t, _ in self._mesh_tris])
         mat_ids = np.concatenate([np.full(t.reshape(-1, 3, 3).shape[0], m,
@@ -381,8 +452,10 @@ class SceneBuilder:
                                   for t, m in self._mesh_tris])
         n = tris.shape[0]
         if n < CLUSTER_MIN_TRIS:
-            raise NotImplementedError(
-                f"a mesh of {n} triangles: {_LBVH_ITEM} is not ported")
+            soup = MeshSoup(*(torch.from_numpy(np.ascontiguousarray(x))
+                              for x in (tris[:, 0], tris[:, 1], tris[:, 2],
+                                        mat_ids)))
+            return dict(mesh=soup.lbvh(), mesh_soup=soup)
         sets = dict(mesh_clusters=build_clusters(
             tris[:, 0], tris[:, 1], tris[:, 2], mat_ids))
         target = min(LOD_TARGET_TRIS, max(8192, n // 4))
@@ -412,6 +485,13 @@ class SceneBuilder:
         """``clusters``: prebuilt cluster sets ({"mesh_clusters": ...,
         optionally the proxy sets}) that replace the size routing of the
         added mesh triangles, as the forced test scenes need."""
+        textures = None
+        if self.textures:
+            th = max(t.shape[0] for t in self.textures)
+            tw = max(t.shape[1] for t in self.textures)
+            textures = torch.from_numpy(np.stack([
+                np.pad(t, ((0, th - t.shape[0]), (0, tw - t.shape[1]),
+                           (0, 0))) for t in self.textures]))
         f32, i32 = np.float32, np.int32
 
         def col(items, idx, dtype, width=0):
@@ -482,4 +562,5 @@ class SceneBuilder:
                                 for m in self.bank._mats),
             mesh_all_opaque=all(self.bank._mats[mid].transparency <= 0.0
                                 for _, mid in self._mesh_tris),
+            textures=textures, has_dynamic_textures=self.has_dynamic_textures,
             **clusters)

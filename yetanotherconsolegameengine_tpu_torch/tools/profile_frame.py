@@ -3,9 +3,9 @@
     python3 -m yetanotherconsolegameengine_tpu_torch.tools.profile_frame \
         [--scene dragon] [--size 240x135] [--wall-frames 20] [--prof-frames 5]
 
-Renders a scene (by default the dragon at 240x135 cells; ss=1, default
-``RenderConfig``) with the kernels (``impl="kernel"``) after three warm-up
-frames:
+Renders a scene of ``SCENE_BUILDERS`` (by default the dragon at 240x135
+cells; ss=1, default ``RenderConfig``) with the kernels
+(``impl="kernel"``) after three warm-up frames:
 
 1. for a cluster scene, one frame with a CUDA-event pair around every
    cluster sweep (K3): its
@@ -14,11 +14,14 @@ frames:
    lane-tests it needs, its least time on the card (``k3_work``) and its
    time; then each sweep on its own, by CUDA events over 20 launches;
 2. ``WALL_FRAMES`` frames with the profiler off: ms/frame by a
-   synchronised host clock and by CUDA events, rays/frame and the kernel
-   wrappers' launches per frame;
+   synchronised host clock and by CUDA events, rays/frame, the kernel
+   wrappers' launches per frame and, for a BVH-mesh scene, the walk's
+   sweeps per frame with its rounds, host waits and compactions per sweep
+   (``mesh_bvh.STATS``);
 3. ``PROF_FRAMES`` frames under ``torch.profiler`` with a range around each
-   stage (K2, tile cull, the rest of ``intersect_clusters``, K3, shadow
-   rays, compaction, post): device busy time (the union of device operations)
+   stage (K2, tile cull, the rest of ``intersect_clusters``, K3, the BVH
+   walk, shadow rays, compaction, post): device busy time (the union of
+   device operations)
    split by the innermost stage that encloses each operation, device
    kernels and copies per frame, and the host time inside each stage.
 
@@ -48,6 +51,7 @@ STAGES = (
     ("mesh_clusters._tile_cull", "tile cull + list sort (torch)"),
     ("mesh_clusters.intersect_clusters",
      "prefilter, binning sort, unsort, resolve (torch)"),
+    ("mesh_bvh.intersect_mesh", "BVH walk (torch)"),
     ("trace.transmittance_to_lights", "shadow rays outside the sweep (torch)"),
     ("trace._compact", "compaction (torch)"),
     ("post_kernel.post", "K1 post"),
@@ -169,10 +173,10 @@ def busy_by_stage(ops, spans) -> dict:
 def _patch_stages(record_function):
     """Wrap each stage's module attribute in a profiler range; returns a
     function that undoes it."""
-    from ..ops import (cluster_kernel, mesh_clusters, post_kernel, trace,
-                       trace_kernel)
+    from ..ops import (cluster_kernel, mesh_bvh, mesh_clusters, post_kernel,
+                       trace, trace_kernel)
     mods = dict(cluster_kernel=cluster_kernel, mesh_clusters=mesh_clusters,
-                trace=trace, post_kernel=post_kernel,
+                mesh_bvh=mesh_bvh, trace=trace, post_kernel=post_kernel,
                 trace_kernel=trace_kernel)
     saved = []
     for path, label in STAGES:
@@ -264,7 +268,7 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from ..ops import kernels
+    from ..ops import kernels, mesh_bvh
     from ..render.renderer import RaytraceRenderer
     from ..scene.builders import SCENE_BUILDERS
 
@@ -286,6 +290,7 @@ def main(argv=None) -> int:
     # 2. Profiler off.
     n = args.wall_frames
     kernels.reset_launches()
+    mesh_bvh.STATS.clear()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -301,6 +306,14 @@ def main(argv=None) -> int:
         f"{start.elapsed_time(stop) / n:.4f} ms/frame by CUDA events; "
         f"{int(out.rays_traced)} rays/frame (last frame); kernel wrapper "
         f"launches per frame {launches}")
+    bvh = dict(mesh_bvh.STATS)
+    if bvh:
+        sw = bvh["sweeps"]
+        lines.append(
+            f"BVH walk: {sw / n:.1f} sweeps/frame; per sweep "
+            f"{bvh['rounds'] / sw:.1f} rounds, {bvh['waits'] / sw:.1f} host "
+            f"waits, {bvh.get('compactions', 0) / sw:.2f} compactions "
+            f"(a wait every {mesh_bvh.CHECK_EVERY} rounds)")
 
     # 3. Profiler on, with stage ranges.
     n = args.prof_frames

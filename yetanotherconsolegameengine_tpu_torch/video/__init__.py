@@ -1,0 +1,3 @@
+"""Frame readers and video textures, copied from the JAX package's
+``video/readers.py`` and ``video/textures.py`` (numpy and subprocess code
+that imports no JAX)."""
