@@ -46,6 +46,27 @@ Phases (one line each; any failure raises and exits non-zero):
      ``render_many`` whose trace and post launch counts must be non-zero
  14. one ``video_texture`` frame on the card: the synthetic reader's newest
      frame written into its slot, TAA reset, the post kernel launched
+ 15. the voxel DDA (``ops/dda.py::intersect_voxels``) on the card against
+     the CPU on ``voxel_cave``'s primary rays at 160x180 pixels: equal hits,
+     materials and normals, t bit-equal; ms a sweep, rounds, host waits,
+     and device launches a sweep and a round (torch.profiler)
+ 16. the ``voxel_test`` and ``island_surface`` goldens on the card (48x28
+     cells, 4 frames): ``voxel_test`` through the trace kernel, the island
+     through the cluster kernel, held against the plain renderer on the
+     card and reported against the golden (the JAX kernel's bfloat16
+     arithmetic moves a few cells of that golden); then ``voxel_test`` at
+     160x90 through the trace kernel and its DDA form through the torch
+     DDA, each kernel vs plain renderer and timed
+ 17. the default island (256x128x256 voxels, a 224x128x224 window; surface
+     tables of 1,536 and 256 clusters): generation, save and load times,
+     the surface tables built on the card equal to a CPU build, kernel vs
+     plain renderer on one frame, then a 64-pose orbit at 160x90 and at
+     240x135 (ms/frame by CUDA events, Mray/s, launches, the device idle
+     share from torch.profiler)
+ 18. the same island forced onto the DDA (``surface_mesh=False``) at
+     160x90: kernel vs plain renderer on one frame, ms/frame and DDA rounds
+ 19. one frame each of ``teapot``, ``cow``, ``all_meshes`` and ``museum``
+     on the card against the port's plain renderer on the CPU
 Then a JSON line of per-kernel results (``ms`` is the device time,
 ``event_ms`` the CUDA-event time; ``launches`` counts Cornell's timed run for
 K1 and K2 and the dragon's for K3, ``launches_by_path`` every timed run),
@@ -59,9 +80,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -70,7 +93,7 @@ import torch
 from yetanotherconsolegameengine_tpu_torch.config import DEFAULT_CONFIG
 from yetanotherconsolegameengine_tpu_torch.core.camera import (
     make_jittered_rays, ray_params)
-from yetanotherconsolegameengine_tpu_torch.ops import (cluster_kernel,
+from yetanotherconsolegameengine_tpu_torch.ops import (cluster_kernel, dda,
                                                        kernels, lbvh,
                                                        mesh_bvh, post_kernel)
 from yetanotherconsolegameengine_tpu_torch.ops import trace_kernel
@@ -95,6 +118,10 @@ DRAGON_W, DRAGON_H = 240, 135   # the mesh frame: 240x270 traced pixels
 DRAGON_FRAMES = 20
 BUNNY_FRAMES = 10               # the small-mesh frame: 160x180 traced pixels
 DEMO_FRAMES = 100
+VOXEL_FRAMES = 100              # voxel_test 160x90 through K2
+VOXEL_DDA_FRAMES = 10           # its DDA form, the torch DDA
+ORBIT_POSES = 64                # bench_suite's island orbit
+DDA_ISLAND_FRAMES = 6           # the forced-DDA island
 # fp32 operations per K2 ray-primitive test (a slab test: 6 sub, 6 mul,
 # 12 min/max) and per K1 pixel (TAA 3x3 clamp ~100; three 5x5 a-trous
 # passes of 25 taps x ~30; exposure and tail ~60). Least times follow
@@ -226,19 +253,21 @@ def hit_contract(got, want) -> dict:
             if hit.any() else 1.0}
 
 
-def timed_frames(r, n: int, keys, warmup: int = 2) -> dict:
+def timed_frames(r, n: int, keys, warmup: int = 2, poses=None) -> dict:
     """Warm up ``r`` for ``warmup`` frames, then time ``r.render_many(n)``
-    with every launch count set to 0 just before and read just after; each
-    kernel of ``keys`` must have launched."""
-    r.render_many(warmup)
+    (along ``poses`` when given) with every launch count set to 0 just
+    before and read just after; each kernel of ``keys`` must have
+    launched."""
+    r.render_many(warmup, poses=None if poses is None else poses[:warmup])
     torch.cuda.synchronize()
     kernels.reset_launches()
     mesh_bvh.STATS.clear()
+    dda.STATS.clear()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    grids, out = r.render_many(n)
+    grids, out = r.render_many(n, poses=poses)
     stop.record()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
@@ -252,17 +281,33 @@ def timed_frames(r, n: int, keys, warmup: int = 2) -> dict:
     rays = int(out.rays_traced)
     return {"ms": ms, "host_ms": wall, "rays": rays,
             "mray_s": rays / ms / 1e3, "launches": launches,
-            "bvh": dict(mesh_bvh.STATS)}
+            "bvh": dict(mesh_bvh.STATS), "dda": dict(dda.STATS)}
 
 
-def renderer_contract(scene, w, h, dev):
-    """Kernel vs plain renderer on the card over 4 frames: RGB within
-    2e-3, ANSI flips under 0.5%, equal rays_traced. Returns (the errors,
-    the kernel renderer)."""
+def idle_share(r, poses) -> dict:
+    """Device busy time of ``r.render_many`` along ``poses`` (the summed
+    durations of its device operations, torch.profiler) against its wall
+    by CUDA events with the profiler off: (busy ms/frame, wall ms/frame,
+    device operations per frame, idle share)."""
+    n = len(poses)
+    busy, ops = device_ms(lambda: r.render_many(n, poses=poses), 1, 1)
+    wall = cuda_ms(lambda: r.render_many(n, poses=poses), 1, 1)
+    return {"busy_ms": busy / n, "wall_ms": wall / n, "ops": ops / n,
+            "idle_share": 1.0 - busy / wall}
+
+
+def renderer_contract(scene, w, h, dev, frames: int = 4, cam=None):
+    """Kernel vs plain renderer on the card over ``frames`` frames (from
+    camera ``cam`` = (pos, yaw, pitch) when given): RGB within 2e-3, ANSI
+    flips under 0.5%, equal rays_traced. Returns (the errors, the kernel
+    renderer)."""
     rk = RaytraceRenderer(scene, w, h, device=dev, impl="kernel")
     rp = RaytraceRenderer(scene, w, h, device=dev, impl="plain")
-    gk, ok_ = rk.render_many(4)
-    gp, op_ = rp.render_many(4)
+    if cam is not None:
+        rk.set_camera(*cam)
+        rp.set_camera(*cam)
+    gk, ok_ = rk.render_many(frames)
+    gp, op_ = rp.render_many(frames)
     err = max(np.abs(_np(ok_.top_rgb) - _np(op_.top_rgb)).max(),
               np.abs(_np(ok_.bot_rgb) - _np(op_.bot_rgb)).max())
     flips = float(np.mean([(_np(a) != _np(b)).mean()
@@ -339,11 +384,134 @@ def record_sweeps(fn):
     return calls
 
 
+def same_surface_tables(a, b) -> None:
+    """Two ``SurfaceClusterTable``s hold the same chunks with equal rows
+    (slot order may differ: chunks drain in the order the workers finish)."""
+    assert a._slots.keys() == b._slots.keys()
+    assert (a.n_used, a.overflowed) == (b.n_used, b.overflowed)
+    ta, tb = a.clusters(), b.clusters()
+    for key, sa in a._slots.items():
+        sb = b._slots[key]
+        assert len(sa) == len(sb), key
+        ia, ib = torch.tensor(sa, dtype=torch.long), torch.tensor(sb)
+        for f in ("cbmin", "cbmax", "gmat"):
+            assert torch.equal(getattr(ta, f).cpu()[ia],
+                               getattr(tb, f)[ib]), (key, f)
+        rows = lambda s: (s[:, None] * ta.kc + torch.arange(ta.kc)).reshape(-1)
+        assert torch.equal(ta.tri_rows.cpu()[rows(ia)],
+                           tb.tri_rows[rows(ib)]), key
+
+
+def island_phases(dev, card):
+    """Phases 17 and 18 on the default island (``WorldConfig(chunks_x=8,
+    chunks_y=4, chunks_z=8, view_distance=3)``), generated and saved once
+    into a temporary directory. Returns (the orbit runs by size, the
+    forced-DDA run)."""
+    from yetanotherconsolegameengine_tpu_torch.world import worldgen
+    from yetanotherconsolegameengine_tpu_torch.world.manager import (
+        WorldManager)
+    from yetanotherconsolegameengine_tpu_torch.world.persistence import (
+        WorldFile, save_world)
+    from yetanotherconsolegameengine_tpu_torch.world.settings import (
+        WorldConfig)
+    from yetanotherconsolegameengine_tpu_torch.world.volume_scene import (
+        build_minecraft_like)
+    cfg = WorldConfig(chunks_x=8, chunks_y=4, chunks_z=8, view_distance=3)
+
+    def orbit_poses(vs, n):
+        eye = vs.pos.copy()
+        eye[1] += 6.0
+        return [(eye, math.pi * 2 * i / ORBIT_POSES, -0.35) for i in range(n)]
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "island.vg")
+        t0 = time.perf_counter()
+        blocks, meta = worldgen.generate_world(cfg)
+        gen_s = time.perf_counter() - t0
+        save_world(path, blocks, meta)
+        del blocks, meta
+        t0 = time.perf_counter()
+        vs = build_minecraft_like(cfg, world_path=path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        try:
+            scene = vs.update(1.0 / 30.0)
+            mgr = vs.manager
+            cpu = WorldManager(cfg, mgr.lut, WorldFile(path),
+                               transparent_banks=mgr._transparent,
+                               surface_merge_lut=mgr._surf_merge,
+                               device="cpu")
+            try:
+                cpu.ensure_all_loaded(vs.pos, timeout=300.0)
+                cpu.surface_clusters()
+                same_surface_tables(mgr._surface, cpu._surface)
+                same_surface_tables(mgr._surface_lod, cpu._surface_lod)
+            finally:
+                cpu.shutdown()
+            tables = {"window": list(mgr._cells.shape),
+                      "full": [mgr._surface.n_used, mgr._surface.cap],
+                      "lod": [mgr._surface_lod.n_used, mgr._surface_lod.cap],
+                      "chunks": len(mgr._loaded)}
+            poses = orbit_poses(vs, ORBIT_POSES)
+            err, _ = renderer_contract(scene, FB_W, FB_H, dev, frames=1,
+                                       cam=poses[0])
+            print(f"phase 17a {card} default island: generation {gen_s:.2f} "
+                  f"s, load and stream {load_s:.2f} s; tables "
+                  f"{json.dumps(tables)}, equal to the CPU build; kernel vs "
+                  f"plain renderer at {FB_W}x{FB_H}, 1 frame: "
+                  f"{json.dumps(err)}", flush=True)
+            orbit = {}
+            for w, h in ((FB_W, FB_H), (DRAGON_W, DRAGON_H)):
+                r = RaytraceRenderer(scene, w, h, device=dev)
+                run = timed_frames(r, ORBIT_POSES, ("clusters", "post"),
+                                   warmup=4, poses=poses)
+                idle = idle_share(r, poses[:8])
+                orbit[f"{w}x{h}"] = run
+                print(f"phase 17b {card} island orbit {w}x{h} ss=1 "
+                      f"render_many({ORBIT_POSES} poses): {run['ms']:.4f} "
+                      f"ms/frame by CUDA events, {run['host_ms']:.4f} by host "
+                      f"clock, {1000.0 / run['ms']:.2f} fps, {run['rays']} "
+                      f"rays/frame (last frame), {run['mray_s']:.3f} Mray/s; "
+                      f"launches {run['launches']}; over 8 poses: device busy "
+                      f"{idle['busy_ms']:.4f} of {idle['wall_ms']:.4f} "
+                      f"ms/frame, {idle['ops']:.1f} device operations/frame, "
+                      f"idle share {idle['idle_share']:.4f}", flush=True)
+        finally:
+            vs.manager.shutdown()
+
+        vs = build_minecraft_like(cfg, world_path=path, surface_mesh=False,
+                                  device=dev)
+        try:
+            scene = vs.update(1.0 / 30.0)
+            poses = orbit_poses(vs, DDA_ISLAND_FRAMES)
+            err, r = renderer_contract(scene, FB_W, FB_H, dev, frames=1,
+                                       cam=poses[0])
+            run = timed_frames(r, DDA_ISLAND_FRAMES, ("post",), poses=poses)
+            idle = idle_share(r, poses[:2])
+        finally:
+            vs.manager.shutdown()
+    sw = max(1, run["dda"].get("sweeps", 0))
+    print(f"phase 18 {card} forced-DDA island {FB_W}x{FB_H} ss=1 "
+          f"({DDA_ISLAND_FRAMES} orbit poses, cut from bench_suite's 128 for "
+          f"time): kernel vs plain renderer, 1 frame {json.dumps(err)}; "
+          f"{run['ms']:.4f} ms/frame by CUDA events, {run['host_ms']:.4f} by "
+          f"host clock, {run['mray_s']:.3f} Mray/s; launches "
+          f"{run['launches']}; DDA per frame {sw / DDA_ISLAND_FRAMES:.1f} "
+          f"sweeps, per sweep {run['dda']['rounds'] / sw:.1f} rounds, "
+          f"{run['dda']['waits'] / sw:.1f} host waits, "
+          f"{run['dda'].get('compactions', 0) / sw:.2f} compactions; device "
+          f"busy {idle['busy_ms']:.4f} of {idle['wall_ms']:.4f} ms/frame, "
+          f"{idle['ops']:.1f} device operations/frame, idle share "
+          f"{idle['idle_share']:.4f}", flush=True)
+    return orbit, run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
                          "this script runs only on a CUDA card")
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = DEFAULT_CONFIG
@@ -686,6 +854,117 @@ def main() -> int:
           f"(max texel change {moved:.4f}), TAA reset, launches "
           f"{dict(kernels.LAUNCHES)}", flush=True)
 
+    # ---- 15. the voxel DDA on the card vs the CPU ------------------------
+    cave = SCENE_BUILDERS["voxel_cave"]()
+    cave_card = cave.to(dev)
+    c_params = ray_params(cave_card.default_pose, HI_W, HI_H, TRACE_FRAME)
+    o, d = (x.reshape(-1, 3) for x in make_jittered_rays(
+        None, HI_W, HI_H, TRACE_FRAME, params=c_params))
+    dda.STATS.clear()
+    got = dda.intersect_voxels(cave_card.voxels, o, d, 1e-3, INF)
+    torch.cuda.synchronize()
+    march = dict(dda.STATS)
+    want = dda.intersect_voxels(cave.voxels, o.cpu(), d.cpu(), 1e-3, INF)
+    dda_err = hit_contract(got, want)
+    assert dda_err["t_bit_equal"] == 1.0, "DDA t not bit-equal to the CPU"
+    dda_ms = cuda_ms(lambda: dda.intersect_voxels(
+        cave_card.voxels, o, d, 1e-3, INF), 5, 1)
+    _, dda_ops = device_ms(lambda: dda.intersect_voxels(
+        cave_card.voxels, o, d, 1e-3, INF), 1, 1)
+    print(f"phase 15 {card} voxel DDA on the card vs the CPU, voxel_cave "
+          f"primary rays {HI_W}x{HI_H} frame {TRACE_FRAME}: "
+          f"{json.dumps(dda_err)}; {dda_ms:.3f} ms a sweep by CUDA events; "
+          f"{march['rounds']} rounds, {march['waits']} host waits, "
+          f"{march.get('compactions', 0)} compactions; {dda_ops:.0f} device "
+          f"operations a sweep, {dda_ops / march['rounds']:.1f} a round",
+          flush=True)
+
+    # ---- 16. the voxel goldens on the card, the voxel room at 160x90 -----
+    from yetanotherconsolegameengine_tpu_torch.scene.voxel_scenes import (
+        build_voxel_test_scene)
+    from yetanotherconsolegameengine_tpu_torch.world.settings import (
+        WorldConfig)
+    from yetanotherconsolegameengine_tpu_torch.world.volume_scene import (
+        build_minecraft_like)
+    voxel_golden = {}
+    kernels.reset_launches()
+    r = RaytraceRenderer(SCENE_BUILDERS["voxel_test"](), 48, 28, device=dev)
+    for _ in range(4):
+        out = r.render()
+    e = max(np.abs(_np(out.top_rgb) - goldens["voxel_test_top"]).max(),
+            np.abs(_np(out.bot_rgb) - goldens["voxel_test_bot"]).max())
+    assert e <= 2e-3, f"voxel_test: golden error {e}"
+    assert kernels.LAUNCHES["trace"] == 4, "voxel_test without K2"
+    voxel_golden["voxel_test"] = float(e)
+    with tempfile.TemporaryDirectory() as td:
+        vs = build_minecraft_like(
+            WorldConfig(chunks_x=2, chunks_y=2, chunks_z=2, view_distance=1),
+            world_path=os.path.join(td, "w.vg"), regenerate=True, device=dev)
+        try:
+            vs.manager.ensure_all_loaded(vs.pos, timeout=120.0)
+            isl = vs.update(1.0 / 30.0)
+        finally:
+            vs.manager.shutdown()
+    isl = dataclasses.replace(isl, defaults=(
+        float(vs.pos[0]), float(vs.pos[1]) + 10.0, float(vs.pos[2]),
+        isl.defaults[3], -0.9, isl.defaults[5]))
+    kernels.reset_launches()
+    isl_err, rk = renderer_contract(isl, 48, 28, dev)
+    assert kernels.LAUNCHES["clusters"] > 0, "island_surface without K3"
+    ik = RaytraceRenderer(isl, 48, 28, device=dev)
+    for _ in range(4):
+        out = ik.render()
+    off = np.maximum(
+        np.abs(_np(out.top_rgb) - goldens["island_surface_top"]).max(-1),
+        np.abs(_np(out.bot_rgb) - goldens["island_surface_bot"]).max(-1))
+    voxel_golden["island_surface"] = {
+        "kernel_vs_plain": isl_err, "golden_max": float(off.max()),
+        "cells_over_2e-3": float((off > 2e-3).mean())}
+    print(f"phase 16a goldens on the card (48x28, 4 frames, kernels): "
+          f"{json.dumps(voxel_golden)}", flush=True)
+    room_err, room_r = renderer_contract(SCENE_BUILDERS["voxel_test"](), FB_W,
+                                         FB_H, dev)
+    room_run = timed_frames(room_r, VOXEL_FRAMES, ("trace", "post"))
+    droom_err, droom_r = renderer_contract(
+        build_voxel_test_scene(merge="dda"), FB_W, FB_H, dev, frames=1)
+    droom_run = timed_frames(droom_r, VOXEL_DDA_FRAMES, ("post",))
+    assert droom_run["launches"]["trace"] == 0
+    print(f"phase 16b {card} voxel_test {FB_W}x{FB_H} ss=1 through K2: "
+          f"kernel vs plain renderer, 4 frames {json.dumps(room_err)}; "
+          f"render_many({VOXEL_FRAMES}): {room_run['ms']:.4f} ms/frame by "
+          f"CUDA events, {room_run['host_ms']:.4f} by host clock, "
+          f"{room_run['mray_s']:.2f} Mray/s, launches {room_run['launches']};"
+          f" its DDA form (merge='dda'): kernel vs plain renderer, 1 frame "
+          f"{json.dumps(droom_err)}; render_many({VOXEL_DDA_FRAMES}): "
+          f"{droom_run['ms']:.4f} ms/frame by CUDA events, "
+          f"{droom_run['host_ms']:.4f} by host clock, "
+          f"{droom_run['mray_s']:.3f} Mray/s, launches "
+          f"{droom_run['launches']}, DDA {droom_run['dda']}", flush=True)
+
+    # ---- 17, 18. the default island, on surface clusters and on the DDA --
+    orbit, dda_run = island_phases(dev, card)
+
+    # ---- 19. the small-mesh scenes on the card vs the CPU ----------------
+    mesh_err = {}
+    for name in ("teapot", "cow", "all_meshes", "museum"):
+        scene = SCENE_BUILDERS[name]()
+        kernels.reset_launches()
+        gk, ok_ = RaytraceRenderer(scene, 48, 28, device=dev).render_many(1)
+        assert kernels.LAUNCHES["post"] == 1, f"{name} without K1"
+        gp, op_ = RaytraceRenderer(scene, 48, 28,
+                                   device="cpu").render_many(1)
+        err = max(np.abs(_np(ok_.top_rgb) - _np(op_.top_rgb)).max(),
+                  np.abs(_np(ok_.bot_rgb) - _np(op_.bot_rgb)).max())
+        flips = float(np.mean([(_np(a) != _np(b)).mean()
+                               for a, b in zip(gk, gp)]))
+        assert err <= 2e-3 and flips < 0.005, (name, err, flips)
+        assert int(ok_.rays_traced) == int(op_.rays_traced), name
+        mesh_err[name] = {"rgb": float(err), "ansi_flips": flips}
+    print(f"phase 19 {card} small-mesh scenes, card (kernels) vs the CPU "
+          f"(plain), 48x28, 1 frame: {json.dumps(mesh_err)}", flush=True)
+
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": "trace", "route": "cuda",
          "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
@@ -697,7 +976,8 @@ def main() -> int:
          "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None,
          "launches_by_path": {"cornell": launches["trace"],
-                              "demo_random": demo_run["launches"]["trace"]},
+                              "demo_random": demo_run["launches"]["trace"],
+                              "voxel_test": room_run["launches"]["trace"]},
          "demo_random": {"ms": demo_k2, "plain_ms": demo_k2p,
                          "bound_ms": demo_bound[0],
                          "bound_by": demo_bound[1]}},
@@ -713,7 +993,12 @@ def main() -> int:
          "launches_by_path": {"cornell": launches["post"],
                               "dragon": d_launches["post"],
                               "bunny": b_run["launches"]["post"],
-                              "demo_random": demo_run["launches"]["post"]}},
+                              "demo_random": demo_run["launches"]["post"],
+                              "voxel_test": room_run["launches"]["post"],
+                              "voxel_test_dda": droom_run["launches"]["post"],
+                              **{f"island_{k}": v["launches"]["post"]
+                                 for k, v in orbit.items()},
+                              "island_dda": dda_run["launches"]["post"]}},
         {"name": "clusters", "route": "cuda",
          "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
                    "cluster_kernel.cu",
@@ -723,7 +1008,10 @@ def main() -> int:
          "bound_ms": k3_bound,
          "bound_by": "operations" if all(
              x["bound_by"] == "operations" for x in k3_sweeps) else "bytes",
-         "library_ms": None},
+         "library_ms": None,
+         "launches_by_path": {"dragon": d_launches["clusters"],
+                              **{f"island_{k}": v["launches"]["clusters"]
+                                 for k, v in orbit.items()}}},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

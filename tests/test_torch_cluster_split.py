@@ -31,8 +31,9 @@ torch.set_num_threads(1)
 
 @pytest.mark.parametrize("qmask", [0, 1023, 2047])
 def test_packed_word_orders_as_key_then_flat_id(qmask):
-    """Word order is (key(t), flat id) order, ties and -0 == +0 included,
-    and a ray's starting word is beaten only by a strictly smaller key."""
+    """Word order is (key(t), list index) order, ties and -0 == +0
+    included, and a ray's starting word is beaten only by a strictly
+    smaller key."""
     rng = np.random.RandomState(qmask)
     n = 4000
     t = np.concatenate([
@@ -105,12 +106,21 @@ def _frame_sweeps(name):
     return calls
 
 
+def _list_index(ids, win, kc, e0=0):
+    """Flat winners -> their list indices e * kc + k in the rays' tile
+    lists ``ids`` (which start at list position ``e0``); -1 stays."""
+    tile = torch.arange(win.shape[0]) // 256
+    e = (ids[tile] == (win // kc)[:, None]).to(torch.int32).argmax(1)
+    return torch.where(win >= 0, (e0 + e) * kc + win % kc,
+                       -1).to(torch.int32)
+
+
 def _split(args, piece, order_seed):
     """The kernel's schedule on the plain version: each piece of ``piece``
     entries of every tile's list swept on its own, the words combined by
     minimum in a shuffled order, read back by the epilogue."""
     lens, ids, entry_t, gmat, rays, any_hit, qmask = args
-    C = ids.shape[1]
+    C, kc = ids.shape[1], gmat.shape[2]
     words = []
     for e0 in range(0, C, piece):
         sl = slice(e0, min(C, e0 + piece))
@@ -118,23 +128,24 @@ def _split(args, piece, order_seed):
         t, win, _ = ck.trace_tiles_plain(
             plen, ids[:, sl].contiguous(), entry_t[:, sl].contiguous(), gmat,
             rays, any_hit, qmask)
-        words.append(ck.pack_words(t, win, rays, qmask))
+        idx = _list_index(ids[:, sl], win, kc, e0)
+        words.append(ck.pack_words(t, idx, rays, qmask))
     best = ck.pack_words(rays[:, 7], _no_hit(rays.shape[0]), rays, qmask)
     for i in np.random.RandomState(order_seed).permutation(len(words)):
         best = torch.minimum(best, words[i])
-    return ck.unpack_words(best, gmat, rays, qmask)
+    return ck.unpack_words(best, ids, gmat, rays, qmask)
 
 
 def _brute(args):
-    """Nearest (key(t), flat id) over each tile's listed triangles, with the
-    sweep's float32 arithmetic."""
+    """Nearest (key(t), list index) over each tile's listed triangles, with
+    the sweep's float32 arithmetic."""
     lens, ids, _, gmat, rays, _, qmask = args
     kc = gmat.shape[2]
     out_t, out_w = [], []
     for tile in range(ids.shape[0]):
         cid = ids[tile, : int(lens[tile])].long()
         g = gmat[cid].permute(1, 0, 2).reshape(12, -1)[:, None, :]
-        flat = (cid[:, None] * kc + torch.arange(kc)).reshape(-1)
+        idx = torch.arange(cid.numel() * kc)
         r = rays[tile * 256:(tile + 1) * 256]
         ox, oy, oz, dx, dy, dz = (r[:, i, None] for i in range(6))
         ou = ((g[0] * ox + g[1] * oy) + g[2] * oz) + g[3]
@@ -150,14 +161,14 @@ def _brute(args):
               & (t > r[:, 6, None]))
         start = ck.pack_words(r[:, 7], _no_hit(256), r, qmask)
         best = start
-        if flat.numel():
+        if idx.numel():
             words = ck.pack_words(
                 t.reshape(-1),
-                torch.where(ok, flat.to(torch.int32), -1).reshape(-1),
-                r[:, None, :].expand(-1, flat.numel(), -1).reshape(-1, 8),
+                torch.where(ok, idx.to(torch.int32), -1).reshape(-1),
+                r[:, None, :].expand(-1, idx.numel(), -1).reshape(-1, 8),
                 qmask).reshape(256, -1)
             best = torch.minimum(words.amin(1), start)
-        tt, ww = ck.unpack_words(best, gmat, r, qmask)
+        tt, ww = ck.unpack_words(best, ids[tile:tile + 1], gmat, r, qmask)
         out_t.append(tt)
         out_w.append(ww)
     return torch.cat(out_t), torch.cat(out_w)
@@ -215,8 +226,8 @@ def test_epilogue_t_is_bit_equal_to_the_plain_t(kc, qmask):
     got = ck.winner_t(args[3], args[4], win)
     np.testing.assert_array_equal(got.view(torch.int32).numpy(),
                                   t.view(torch.int32).numpy())
-    words = ck.pack_words(t, win, args[4], qmask)
-    ut, uw = ck.unpack_words(words, args[3], args[4], qmask)
+    words = ck.pack_words(t, _list_index(args[1], win, kc), args[4], qmask)
+    ut, uw = ck.unpack_words(words, args[1], args[3], args[4], qmask)
     np.testing.assert_array_equal(uw.numpy(), win.numpy())
     np.testing.assert_array_equal(ut.view(torch.int32).numpy(),
                                   t.view(torch.int32).numpy())

@@ -410,3 +410,72 @@ def test_trace_kernel_matches_plain_on_demo_random(dev):
     packed = trace_kernel.pack_scene(scene.to(dev))
     trace_contract(_trace(packed, 3, dev).cpu().numpy(),
                    _trace(packed, 3, dev, plain=True).cpu().numpy())
+
+
+def _island(dev, tmp_path):
+    """The island_surface golden's 2x2x2-chunk island, streamed on the
+    card, after one update."""
+    from yetanotherconsolegameengine_tpu_torch.world.settings import (
+        WorldConfig)
+    from yetanotherconsolegameengine_tpu_torch.world.volume_scene import (
+        build_minecraft_like)
+    vs = build_minecraft_like(
+        WorldConfig(chunks_x=2, chunks_y=2, chunks_z=2, view_distance=1),
+        world_path=str(tmp_path / "w.vg"), regenerate=True, device=dev)
+    try:
+        vs.manager.ensure_all_loaded(vs.pos, timeout=60.0)
+        scene = vs.update(1.0 / 30.0)
+    finally:
+        vs.manager.shutdown()
+    return dataclasses.replace(scene, defaults=(
+        float(vs.pos[0]), float(vs.pos[1]) + 10.0, float(vs.pos[2]),
+        scene.defaults[3], -0.9, scene.defaults[5]))
+
+
+def test_cluster_kernel_matches_plain_on_the_island(dev, tmp_path):
+    """Every sweep of an island frame (surface tables with free rows,
+    coplanar quads of different blocks sharing edges, any-hit binary
+    shadows): nearest winners and t bit-equal to the plain sweep, whose
+    ties go to the earlier list entry; any-hit masks equal."""
+    scene = _island(dev, tmp_path)
+    assert scene.mesh_clusters.gmat.device.type == "cuda"
+    r = RaytraceRenderer(scene, W, H, device=dev)
+    calls = record_sweeps(r.render)
+    assert any(a[5] for a, _ in calls) and not all(a[5] for a, _ in calls)
+    for args, got in calls:
+        sweep_contract(got, cluster_kernel.trace_tiles_plain(*args), args)
+
+
+def test_renderer_kernels_on_the_voxel_scenes(dev):
+    """voxel_test takes the trace kernel and holds its golden; the DDA
+    forms render through the torch DDA and the post kernel, kernel and
+    plain renderers equal."""
+    from chip_smoke import renderer_contract
+    goldens = np.load("tests/goldens.npz")
+    kernels.reset_launches()
+    r = RaytraceRenderer(SCENE_BUILDERS["voxel_test"](), 48, 28, device=dev)
+    for _ in range(4):
+        out = r.render()
+    assert kernels.LAUNCHES["trace"] == 4
+    for half in ("top", "bot"):
+        np.testing.assert_allclose(getattr(out, f"{half}_rgb").cpu().numpy(),
+                                   goldens[f"voxel_test_{half}"], atol=2e-3)
+    from yetanotherconsolegameengine_tpu_torch.scene.voxel_scenes import (
+        build_voxel_test_scene)
+    for scene in (build_voxel_test_scene(merge="dda"),
+                  SCENE_BUILDERS["voxel_cave"]()):
+        renderer_contract(scene, 40, 24, dev, frames=2)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_dda_on_the_card_equals_the_cpu(dev, compact):
+    from yetanotherconsolegameengine_tpu_torch.ops import dda
+    cave = SCENE_BUILDERS["voxel_cave"]()
+    params = ray_params(cave.default_pose, 96, 64, 2)
+    o, d = (x.reshape(-1, 3) for x in make_jittered_rays(
+        None, 96, 64, 2, params=params))
+    got = dda.intersect_voxels(cave.voxels.to(dev), o.to(dev), d.to(dev),
+                               1e-3, INF, compact=compact)
+    res = hit_contract(got, dda.intersect_voxels(cave.voxels, o, d, 1e-3,
+                                                 INF))
+    assert res["hits"] > 1000 and res["t_bit_equal"] == 1.0

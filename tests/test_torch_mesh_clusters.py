@@ -213,12 +213,17 @@ def _sweep_inputs(kc, seed, n_tiles=3):
             t(np.ascontiguousarray(rays.astype(np.float32))))
 
 
-def _brute(mc, rays, qmask):
+def _brute(mc, rays, qmask, ids):
     """Nearest hit over every triangle with the kernel's float32 Woop
-    arithmetic and winner rule: min (key(t), flat triangle id)."""
+    arithmetic and winner rule: min (key(t), list position, slot), the
+    triangles taken in the order of each ray's tile list ``ids`` (every
+    cluster listed)."""
     g = mc.gmat.numpy()                                  # (C, 12, kc)
     C, _, kc = g.shape
     rows = g.transpose(1, 0, 2).reshape(12, C * kc)[:, None, :]
+    order = ids.numpy()[np.arange(rays.shape[0]) // 256]          # (P, C)
+    flat_of = (order[:, :, None] * kc + np.arange(kc)).reshape(len(order),
+                                                               -1)
     r = rays.numpy()
     ox, oy, oz, dx, dy, dz = (r[:, i, None] for i in range(6))
     tmin, tinit = r[:, 6, None], r[:, 7]
@@ -235,21 +240,22 @@ def _brute(mc, rays, qmask):
         ok = ((u >= np.float32(-1e-3)) & (v >= np.float32(-1e-3))
               & ((1 - u) - v >= np.float32(-1e-3)) & (t > tmin))
     key = (t.view(np.int32) & ~qmask).view(np.float32)
-    key = np.where(ok, key, np.inf)
+    key = np.take_along_axis(np.where(ok, key, np.inf), flat_of, 1)
     kmin = key.min(1)
-    flat = np.argmax(key == kmin[:, None], axis=1)
+    lanes = np.arange(len(r))
+    flat = flat_of[lanes, np.argmax(key == kmin[:, None], axis=1)]
     init = (tinit.view(np.int32) & ~qmask).view(np.float32)
     hit = np.isfinite(kmin) & (kmin < init)
-    return (np.where(hit, t[np.arange(len(r)), flat], 3.0e38),
+    return (np.where(hit, t[lanes, flat], 3.0e38),
             np.where(hit, flat, -1))
 
 
 @pytest.mark.parametrize("kc,qmask", [(256, 0), (256, 1023), (512, 2047)])
 def test_trace_tiles_plain_matches_brute_force(kc, qmask):
-    """Visit order does not matter: random list orders give the brute-force
-    winner of (key(t), flat id), t bit-equal."""
+    """Random list orders give the brute-force winner of (key(t), list
+    position, slot), t bit-equal."""
     mc, lens, ids, entry, rays = _sweep_inputs(kc, seed=kc + qmask)
-    want_t, want_id = _brute(mc, rays, qmask)
+    want_t, want_id = _brute(mc, rays, qmask, ids)
     t, win, steps = cluster_kernel.trace_tiles_plain(
         lens, ids, entry, mc.gmat, rays, False, qmask)
     assert (want_id >= 0).sum() > 100
@@ -283,9 +289,9 @@ def test_exit_cadence_does_not_change_nearest_hits(monkeypatch):
                         lambda *a: seen.append((a, real(*a))) or seen[-1][1])
     h = _port(mc, o, d, 1e-3, INF)
     assert len(seen) == 1 and bool(h.hit.all())
-    (lens, _, _, _, rays, any_hit, qmask), (t, win, steps) = seen[0]
+    (lens, ids, _, _, rays, any_hit, qmask), (t, win, steps) = seen[0]
     assert not any_hit
-    want_t, want_id = _brute(mc, rays, qmask)
+    want_t, want_id = _brute(mc, rays, qmask, ids)
     assert (want_id >= 0).sum() >= n
     np.testing.assert_array_equal(win.numpy(), want_id)
     np.testing.assert_array_equal(t.numpy(), want_t.astype(np.float32))

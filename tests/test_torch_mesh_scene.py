@@ -197,13 +197,22 @@ def test_builder_routing_with_fine_set_equals_jax(monkeypatch, transparent):
 def test_small_meshes_raise_with_the_lbvh_item():
     """Meshes under CLUSTER_MIN_TRIS no longer raise: each builds an LBVH
     (and keeps its soup), never cluster tables; the dragon still takes the
-    cluster path, and only a voxel field still raises."""
+    cluster path, and a voxel field carries across beside a mesh."""
     for name in ("bunny", "teapot", "cow", "glass_gem", "all_meshes"):
         sc = builders.SCENE_BUILDERS[name]()
         assert sc.mesh is not None and sc.mesh_soup is not None
         assert sc.mesh_clusters is None
         assert sc.mesh_soup.a.shape[0] < ptables.CLUSTER_MIN_TRIS
     assert "dragon" in builders.SCENE_BUILDERS
+    from yetanotherconsolegameengine_tpu.scene.voxel_scenes import (
+        build_voxel_cave_scene)
+    jvox = build_voxel_cave_scene().voxels
     flat = flatten_jax_scene(jtables.SceneBuilder("x").build())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ptables.scene_from_numpy(dict(flat, voxels=np.ones(1, np.bool_)))
+    flat.update({f"voxels.{f}": np.asarray(getattr(jvox, f))
+                 for f in ("cells", "origin", "voxel_size")})
+    carried = ptables.scene_from_numpy(flat)
+    np.testing.assert_array_equal(carried.voxels.cells.numpy(),
+                                  np.asarray(jvox.cells))
+    assert float(carried.voxels.voxel_size) == float(jvox.voxel_size)
+    assert carried.to_numpy()["voxels.origin"].tolist() == \
+        np.asarray(jvox.origin).tolist()

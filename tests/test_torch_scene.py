@@ -6,6 +6,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from yetanotherconsolegameengine_tpu.scene import builders as jbuilders
 from yetanotherconsolegameengine_tpu_torch.scene import builders, tables
@@ -30,9 +31,11 @@ def flatten_jax_scene(sc) -> dict:
     d["name"] = np.asarray(sc.name)
     d["binary_shadows"] = np.asarray(sc.binary_shadows)
     d["defaults"] = np.asarray(sc.defaults, np.float64)
-    for k in ("mesh_clusters", "voxels"):
-        if getattr(sc, k) is not None:
-            d[k] = np.ones(1, np.bool_)
+    if sc.mesh_clusters is not None:
+        d["mesh_clusters"] = np.ones(1, np.bool_)
+    if sc.voxels is not None:
+        for f in ("cells", "origin", "voxel_size"):
+            d[f"voxels.{f}"] = np.asarray(getattr(sc.voxels, f))
     if sc.mesh is not None:
         for f in MESH_FIELDS:
             d[f"mesh.{f}"] = np.asarray(getattr(sc.mesh, f))
@@ -65,15 +68,19 @@ def test_builder_tables_equal_jax(name):
 
 
 def test_scene_from_numpy_refuses_what_is_not_ported():
-    """Textures and meshes now carry across; voxel worlds still raise with
-    their ROADMAP item, and an unknown key with KeyError."""
+    """Textures, meshes and voxel worlds carry across (a JAX VoxelWorld
+    arrives equal, cell for cell); an unknown key raises KeyError."""
     flat = flatten_jax_scene(jbuilders.SCENE_BUILDERS["texture_test"]())
     carried = tables.scene_from_numpy(flat)
     np.testing.assert_array_equal(carried.textures.numpy(), flat["textures"])
     assert carried.textures.shape == (1, 64, 64, 3)
-    flat = flatten_jax_scene(jbuilders.SCENE_BUILDERS["cornell"]())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tables.scene_from_numpy(dict(flat, voxels=np.ones(1, np.bool_)))
+    from yetanotherconsolegameengine_tpu.scene.voxel_scenes import (
+        build_voxel_test_scene)
+    flat = flatten_jax_scene(build_voxel_test_scene(merge="dda"))
+    carried = tables.scene_from_numpy(flat)
+    assert carried.voxels.cells.dtype == torch.int16
+    assert carried.voxels.dims == (16, 8, 16) and carried.binary_shadows
+    _assert_same(carried.to_numpy(), {k: v for k, v in flat.items()})
     with pytest.raises(KeyError):
         tables.scene_from_numpy(dict(flat, lod=np.ones(1)))
 

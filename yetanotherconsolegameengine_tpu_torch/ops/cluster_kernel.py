@@ -17,14 +17,23 @@ Inputs (all on one device):
 Outputs: t (P,) f32 (3e38 without a hit), win (P,) i32 flat triangle id
 cluster * kc + k (-1 without a hit), steps (n_tiles,) i32.
 
+The winner is the minimum of (key(t), list position e, k), key(t) being t
+with the low ``qmask`` bits cleared: of equal keys the earlier list entry
+wins, and within an entry the lower triangle slot. That is the JAX
+kernel's rule (it visits the list in order, keeps a strictly smaller key
+across visits, and within a visit takes the lowest lane among equal
+keys); shared edges of coplanar quads of different materials, as the
+streamed world meshes them, resolve by it.
+
 ``trace_tiles_plain`` defines the function: it walks each tile's list in
 order. The kernel cuts the lists into pieces that run in parallel and
 combines them through one 64-bit word per ray (``pack_words``: the
-order-preserving image of key(t) above the flat id), so in nearest mode it
-returns the same t and winners, bit for bit; ``steps`` then counts entries
-tested over all pieces and may exceed the serial walk's. In any-hit mode
-(every hit ends the ray) both give the same hit mask, but the kernel may
-return another blocker. ``unpack_words`` is the kernel's epilogue.
+order-preserving image of key(t) above the list index e * kc + k), so in
+nearest mode it returns the same t and winners, bit for bit; ``steps``
+then counts entries tested over all pieces and may exceed the serial
+walk's. In any-hit mode (every hit ends the ray) both give the same hit
+mask, but the kernel may return another blocker. ``unpack_words`` is the
+kernel's epilogue.
 
 ``trace_tiles`` launches the kernel for CUDA tensors and runs
 ``trace_tiles_plain`` for CPU tensors, where no kernel exists.
@@ -61,14 +70,15 @@ def order_key(key: torch.Tensor) -> torch.Tensor:
     return torch.where(b >= 1 << 31, b ^ 0xFFFFFFFF, b | 1 << 31)
 
 
-def pack_words(t, win, rays, qmask: int) -> torch.Tensor:
-    """The kernel's per-ray words for a result (t, win): (order image of
-    key(t)) << 32 | win for a hit, (image of key(tinit)) << 32 | 0
-    without one. Returned as int64 with the top bit flipped, so signed
-    order is the kernel's unsigned order and ``torch.minimum`` combines."""
-    key = torch.where(win >= 0, key_of(t, qmask),
+def pack_words(t, idx, rays, qmask: int) -> torch.Tensor:
+    """The kernel's per-ray words for a result (t, idx), idx the winner's
+    list index e * kc + k (-1 without a hit): (order image of key(t)) << 32
+    | idx for a hit, (image of key(tinit)) << 32 | 0 without one. Returned
+    as int64 with the top bit flipped, so signed order is the kernel's
+    unsigned order and ``torch.minimum`` combines."""
+    key = torch.where(idx >= 0, key_of(t, qmask),
                       key_of(rays[:, 7].contiguous(), qmask))
-    low = torch.clamp(win, min=0).to(torch.int64)
+    low = torch.clamp(idx, min=0).to(torch.int64)
     return ((order_key(key) << 32) | low) ^ _TOP
 
 
@@ -85,13 +95,18 @@ def winner_t(gmat, rays, win) -> torch.Tensor:
     return torch.where(win >= 0, -ow / dw, NO_HIT_T)
 
 
-def unpack_words(words, gmat, rays, qmask: int):
+def unpack_words(words, ids, gmat, rays, qmask: int):
     """Combined words -> (t, win), as the kernel's epilogue reads them: a
-    word below the ray's starting word is a hit."""
+    word below the ray's starting word is a hit, and its list index maps
+    through the ray's tile list ``ids`` to the flat triangle id."""
     hit = words < pack_words(rays[:, 7], torch.full_like(words, -1,
                                                          dtype=torch.int32),
                              rays, qmask)
-    win = torch.where(hit, (words & 0xFFFFFFFF).to(torch.int32), -1)
+    kc = gmat.shape[2]
+    idx = words & 0xFFFFFFFF
+    tile = torch.arange(words.shape[0], device=words.device) // TILE
+    cid = ids[tile, torch.where(hit, idx // kc, 0)].to(torch.int64)
+    win = torch.where(hit, cid * kc + idx % kc, -1).to(torch.int32)
     return winner_t(gmat, rays, win), win
 
 
@@ -100,8 +115,9 @@ def trace_tiles_plain(lens, ids, entry_t, gmat, rays, any_hit: bool,
     """The function in PyTorch: list position by list position, every
     tile's entry block against every ray of the tile at once, a tile ending
     once no ray of it can improve on its next entry (in any-hit mode: once
-    every ray that can has a hit). Syncs with the host once per list
-    position to stop when no tile is left."""
+    every ray that can has a hit). A later entry wins only with a strictly
+    smaller key. Syncs with the host once per list position to stop when
+    no tile is left."""
     n_tiles, C = ids.shape
     kc = gmat.shape[2]
     dev = rays.device
@@ -145,8 +161,7 @@ def trace_tiles_plain(lens, ids, entry_t, gmat, rays, any_hit: bool,
         kmin = key.amin(-1)                               # (n_tiles, T)
         k = torch.where(key == kmin[..., None], k_iota, kc).amin(-1)
         flat = cid[:, None] * kc + k.to(torch.int32)
-        better = (kmin < inf) & ((kmin < best_key)
-                                 | ((kmin == best_key) & (flat < best_id)))
+        better = kmin < best_key     # ties stay with the earlier entry
         best_key = torch.where(better, kmin, best_key)
         best_t = torch.where(better, t.gather(-1, k[..., None])[..., 0],
                              best_t)

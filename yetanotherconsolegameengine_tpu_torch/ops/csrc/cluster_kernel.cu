@@ -9,8 +9,10 @@
 //     ou = Ux*ox + Uy*oy + Uz*oz + Uc   du = Ux*dx + Uy*dy + Uz*dz  (V, W alike)
 //     t = -ow / dw,  u = ou + t*du,  v = ov + t*dv
 //     valid = u, v, 1-u-v >= -1e-3  and  t > tmin (strict, per ray)
-// The winner is the lexicographic minimum of (key(t), flat triangle id =
-// cluster*kc + k), key(t) = t's bits with the low `qmask` bits cleared.
+// The winner is the lexicographic minimum of (key(t), list index =
+// e*kc + k), key(t) = t's bits with the low `qmask` bits cleared and e the
+// entry's position in the tile's list: of equal keys the earlier entry
+// wins, then the lower triangle slot, as in the TPU kernel.
 //
 // What bounds it on this card: the ray-triangle arithmetic (~40 fp32
 // operations per test); the bytes (a 24 KB cluster block per entry, shared
@@ -27,11 +29,11 @@
 //      once, so the items need no host wait. The schedule was chosen on
 //      the card (PERF.md); a retune edits the two constants.
 //   2. Keeps one 64-bit word per ray in device memory: (order-preserving
-//      uint32 image of key(t)) << 32 | flat id, combined across blocks with
-//      atomicMin. Its minimum is exactly the (key, id) rule, so the winner
-//      does not depend on which block finishes first. The word starts at
-//      (image of key(tinit)) << 32 | 0: only a strictly smaller key beats
-//      tinit, as before.
+//      uint32 image of key(t)) << 32 | list index, combined across blocks
+//      with atomicMin. Its minimum is exactly the (key, index) rule, so the
+//      winner does not depend on which block finishes first. The word
+//      starts at (image of key(tinit)) << 32 | 0: only a strictly smaller
+//      key beats tinit.
 //   3. Before every entry the block asks which of its rays can still
 //      improve: key(entry t) <= the key of the ray's current word (any-hit
 //      mode: and no hit yet). Words only fall, and no triangle of an entry
@@ -44,7 +46,8 @@
 //      into shared memory runs under the tests of entry e (2 x 24 KB at
 //      kc=512, past the 48 KB default, so the launcher raises the block's
 //      dynamic shared memory limit).
-//   5. An epilogue recomputes each winner's exact t from its 12 gmat values
+//   5. An epilogue maps each winner's list index to its flat triangle id
+//      (cluster*kc + k) and recomputes its exact t from its 12 gmat values
 //      in the same operation order, so t is bit-equal to the plain version.
 //
 // In any-hit mode a ray stops at its first blocker, and any blocker may win
@@ -102,8 +105,8 @@ __device__ __forceinline__ unsigned order_of(float key) {
 }
 
 __device__ __forceinline__ unsigned long long word_of(float key,
-                                                      unsigned flat) {
-  return ((unsigned long long)order_of(key) << 32) | flat;
+                                                      unsigned idx) {
+  return ((unsigned long long)order_of(key) << 32) | idx;
 }
 
 __device__ __forceinline__ unsigned long long init_word(const Sweep& s,
@@ -206,7 +209,7 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(Sweep s) {
     int G = 1;
     while (2 * G * S <= kThreads && 2 * G <= kq) G *= 2;
     const float4* rows = smem4 + buf * n4;   // row i, quad q: rows[i*kq + q]
-    const unsigned base = (unsigned)list[e] * (unsigned)kc;
+    const unsigned base = (unsigned)e * (unsigned)kc;   // list index base
     for (int u = tid; u < S * G; u += kThreads) {
       const int slot = u % S, g = u / S;
       if (slot >= n_live) continue;
@@ -270,7 +273,11 @@ __global__ void epilogue_kernel(Sweep s, int n_rays) {
     s.out_win[i] = -1;
     return;
   }
-  const unsigned flat = (unsigned)w;
+  const unsigned idx = (unsigned)w;
+  const int tile = i / kTile;
+  const unsigned flat =
+      (unsigned)s.ids[(size_t)tile * s.n_lists + idx / s.kc] * s.kc
+      + idx % s.kc;
   const float* g = s.gmat + (size_t)(flat / s.kc) * kRows * s.kc
                    + flat % s.kc;
   const float* ray = s.rays + (size_t)i * 8;

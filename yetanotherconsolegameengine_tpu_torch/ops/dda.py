@@ -1,0 +1,227 @@
+"""Voxel grid traversal: the restart DDA with a distance-field jump.
+
+Port of ``yetanotherconsolegameengine_tpu/ops/dda.py``. A ``VoxelWorld``
+holds one int16 cell per voxel: a positive cell is a material-bank id, any
+other cell is -(D+1) with D the Chebyshev distance in cells to the nearest
+solid cell, capped at ``MAX_DIST``. Every round of ``intersect_voxels``
+does, for each ray, pure arithmetic and one gather:
+
+    p      = o + (t + eps) * d
+    cell   = floor((p - origin) / h)
+    solid? -> done (normal = the face of the axis crossed to enter)
+    t      = max(next cell boundary, t + (D - 1) * h, t + eps)
+
+A unit-direction ray moves at most s per axis over a distance s, so the
+(D - 1)-cell jump never skips a solid cell.
+
+The rays advance in lockstep. A finished ray (hit, left the grid or past
+its tmax) changes nothing in later rounds, so the loop waits on the host
+only every ``CHECK_EVERY`` rounds to see whether rays still march, and
+once at most a quarter of a batch of at least ``COMPACT_MIN`` lanes does,
+it gathers the marching lanes (``nonzero``) into a narrower batch, as
+``ops/mesh_bvh.py`` does. Per-lane arithmetic does not depend on the other
+lanes, so the result equals the uncompacted loop bit for bit, and on the
+card it equals the CPU bit for bit. (The JAX package narrows by
+``argsort`` to P/4 then P/16 and selects the normal by ``one_hot``; here a
+gather does both. XLA's CPU backend fuses the boundary's ``cell * h +
+origin`` into one multiply-add, which the port rounds twice, so t can
+differ from the JAX package's by an ulp.)
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..devices import resolve_device
+from ..scene._tensors import Tensors
+from .intersect import INF, Hit, _col, _safe_div
+
+BRICK = 8      # grids are padded to multiples of 8^3 bricks
+# Chebyshev distance cap in cells: empty-space jumps reach MAX_DIST - 1
+# cells; each unit costs one min-filter pass in cell_distance_field.
+MAX_DIST = 31
+# Rounds between host checks for rays still marching.
+CHECK_EVERY = 8
+# Narrow a batch of at least this many lanes once at most a quarter of it
+# still marches.
+COMPACT_MIN = 1024
+
+# Work counters of the loop (sweeps, rounds, host waits, compactions), for
+# the frame profiler; ``STATS.clear()`` resets them.
+STATS = collections.Counter()
+
+
+@dataclasses.dataclass(frozen=True)
+class VoxelWorld(Tensors):
+    """Dense voxel grid with the distance encoding in its cells."""
+
+    cells: torch.Tensor       # (nx, ny, nz) i16, distance-encoded
+    origin: torch.Tensor      # (3,) f32 world-space min corner
+    voxel_size: torch.Tensor  # () f32
+
+    @property
+    def dims(self):
+        return tuple(self.cells.shape)
+
+
+def _shift(m: torch.Tensor, axis: int, step: int) -> torch.Tensor:
+    """``m`` moved one cell along ``axis`` (``jnp.roll`` by ``step``), the
+    cell rolled in from the far side replaced by ``MAX_DIST``."""
+    out = torch.roll(m, step, axis)
+    edge = [slice(None)] * 3
+    edge[axis] = slice(0, 1) if step > 0 else slice(-1, None)
+    out[tuple(edge)] = MAX_DIST
+    return out
+
+
+def cell_distance_field(cells: torch.Tensor) -> torch.Tensor:
+    """Chebyshev distance to the nearest solid cell, capped at
+    ``MAX_DIST``: ``MAX_DIST`` passes of a separable 3x3x3 min filter
+    (integer work, equal to the JAX package's)."""
+    d = torch.where(cells > 0, 0, MAX_DIST).to(torch.int16)
+    for _ in range(MAX_DIST):
+        m = d
+        for axis in range(3):
+            m = torch.minimum(m, torch.minimum(_shift(m, axis, 1),
+                                               _shift(m, axis, -1)))
+        d = torch.minimum(d, m + 1)
+    return d
+
+
+def encode_cells(cells: torch.Tensor) -> torch.Tensor:
+    """Material ids -> distance-encoded cells (see ``VoxelWorld``)."""
+    dist = cell_distance_field(cells)
+    return torch.where(cells > 0, cells, -dist - 1).to(torch.int16)
+
+
+def build_voxel_world(cells: np.ndarray, origin, voxel_size: float,
+                      device="cuda") -> VoxelWorld:
+    """cells: (nx, ny, nz) int material-bank ids (0 = air), padded with
+    air to whole bricks and encoded on ``device`` (the card unless
+    "cpu" is given)."""
+    dev = resolve_device(device)
+    cells = np.asarray(cells)
+    pad = [(0, (-cells.shape[i]) % BRICK) for i in range(3)]
+    cells = torch.from_numpy(np.pad(cells, pad).astype(np.int16)).to(dev)
+    return VoxelWorld(
+        cells=encode_cells(cells),
+        origin=torch.as_tensor(np.asarray(origin, np.float32), device=dev),
+        voxel_size=torch.tensor(voxel_size, dtype=torch.float32, device=dev))
+
+
+def _step(st: dict, g: dict) -> None:
+    """One lockstep round on the lanes of ``st``, in place. ``g``: the
+    grid constants of the sweep."""
+    t, alive = st["t"], st["alive"]
+    h, eps = g["h"], g["eps"]
+    te = t + eps
+    p = st["o"] + te[:, None] * st["d"]
+    # Divide by the grid's (0-d) tensor, not a host float: CUDA turns
+    # division by a host scalar into a multiply by its reciprocal.
+    cell = torch.floor((p - g["gmin"]) / g["h_t"]).to(torch.int32)
+    cc = torch.clamp(cell, g["zero"], g["top"])
+    in_grid = (cc == cell).all(1)
+    alive = alive & in_grid & (t < st["tcap"])
+    enc = g["cells"][(cc * g["strides"]).sum(1)]
+    # A lane hits at most once: after a hit it is dead for good.
+    solid = alive & (enc > 0)
+    st["hit"] = st["hit"] | solid
+    st["t_hit"] = torch.where(solid, t, st["t_hit"])
+    st["axis_hit"] = torch.where(solid, st["axis"], st["axis_hit"])
+    st["mat"] = torch.where(solid, enc, st["mat"])
+    alive = alive & ~solid
+    # The next cell boundary on each axis, INF where the ray is parallel.
+    t_axes = ((cell + st["up"]) * h + g["gmin"] - st["o"]) * st["inv"]
+    t_axes = torch.where(st["flat"], INF, t_axes)
+    t_new, new_axis = torch.min(t_axes, 1)   # first index of equal minima
+    # Distance-field skip: (D - 1) cells, D = -enc - 1 on an empty cell.
+    t_new = torch.maximum(t_new, t + torch.clamp(-2 - enc, min=0) * h)
+    st["t"] = torch.where(alive, torch.maximum(t_new, te), t)
+    st["axis"] = torch.where(alive, new_axis, st["axis"])
+    st["alive"] = alive
+
+
+_OUT = ("hit", "t_hit", "axis_hit", "mat")
+
+
+def intersect_voxels(w: VoxelWorld, o, d, tmin, tmax,
+                     compact: bool = True) -> Hit:
+    """Nearest solid-cell hit of (P, 3) rays, with entry-face normals;
+    tmin/tmax scalar or (P,). A ray whose origin is inside the grid and
+    that hits at its start has no entry face and gets ``-d``.
+    ``compact=False`` marches every lane to the end (the reference the
+    compacted loop equals)."""
+    P = o.shape[0]
+    dev = o.device
+    nx, ny, nz = w.dims
+    dims = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
+    # The grid's scalars as host floats: every product below is the f32
+    # product of f32 values, as in the JAX package.
+    h = float(w.voxel_size)
+    eps = float(np.float32(1e-4) * np.float32(h))
+    t_lo = _col(tmin, o)[:, 0]
+    t_hi = _col(tmax, o)[:, 0]
+    inv_d = _safe_div(torch.ones_like(d), d)
+
+    # Grid box entry and exit.
+    gmin = w.origin.to(dev)
+    gmax = gmin + dims.to(torch.float32) * h
+    ta = (gmin[None] - o) * inv_d
+    tb = (gmax[None] - o) * inv_d
+    t_enter, enter_axis = torch.max(torch.minimum(ta, tb), 1)
+    t_exit = torch.maximum(ta, tb).amin(1)
+    t_start = torch.maximum(t_enter, t_lo)
+    inside = t_enter < t_lo
+    alive0 = (t_enter <= t_exit) & (t_start < t_hi) & (t_exit >= t_lo)
+
+    g = dict(h=h, eps=eps, gmin=gmin, h_t=w.voxel_size.to(dev),
+             zero=torch.zeros(3, dtype=torch.int32, device=dev),
+             top=dims - 1,
+             strides=torch.tensor([ny * nz, nz, 1], dtype=torch.int32,
+                                  device=dev),
+             cells=w.cells.reshape(-1).to(dev, torch.int32))
+    full = dict(t=t_start, axis=enter_axis, alive=alive0,
+                hit=torch.zeros(P, dtype=torch.bool, device=dev),
+                t_hit=torch.full((P,), INF, device=dev),
+                axis_hit=torch.zeros(P, dtype=torch.int64, device=dev),
+                mat=torch.zeros(P, dtype=torch.int32, device=dev),
+                o=o, d=d, inv=inv_d, tcap=torch.minimum(t_exit, t_hi),
+                up=(d > 0.0).to(torch.int32), flat=d.abs() < 1e-12)
+    STATS["sweeps"] += 1
+    cur, lanes = full, None
+    while True:
+        for _ in range(CHECK_EVERY):
+            _step(cur, g)
+        STATS["rounds"] += CHECK_EVERY
+        STATS["waits"] += 1
+        n_alive = int(cur["alive"].sum())
+        if n_alive == 0:
+            break
+        width = cur["alive"].shape[0]
+        if compact and width >= COMPACT_MIN and 4 * n_alive <= width:
+            keep = torch.nonzero(cur["alive"])[:, 0]
+            if lanes is not None:
+                _write_back(full, cur, lanes)
+            cur = {k: x[keep] for k, x in cur.items()}
+            lanes = keep if lanes is None else lanes[keep]
+            STATS["compactions"] += 1
+    if lanes is not None:
+        _write_back(full, cur, lanes)
+
+    hit, t_hit, axis_hit = full["hit"], full["t_hit"], full["axis_hit"]
+    d_axis = d.gather(1, axis_hit[:, None])[:, 0]
+    n = torch.eye(3, device=dev)[axis_hit] \
+        * torch.where(d_axis < 0, 1.0, -1.0)[:, None]
+    n = torch.where((inside & (t_hit <= t_start + eps))[:, None], -d, n)
+    z = torch.zeros(P, device=dev)
+    return Hit(t=torch.where(hit, t_hit, INF), n=n, u=z, v=z,
+               mat=full["mat"], hit=hit)
+
+
+def _write_back(full: dict, cur: dict, lanes) -> None:
+    for k in _OUT:
+        full[k] = full[k].index_copy(0, lanes, cur[k])

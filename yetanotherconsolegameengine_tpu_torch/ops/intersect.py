@@ -16,7 +16,8 @@ u, v (boxes and rects: the face coordinates; triangles: the barycentrics;
 zero for the other types), which texture lookup reads.
 ``intersect_scene`` then sweeps the scene's BVH mesh (ops/mesh_bvh.py) and
 its cluster mesh (ops/mesh_clusters.py), each clipped to the primitives'
-nearest hit. Voxel worlds are not ported.
+nearest hit, and last its voxel grid (ops/dda.py), clipped to the nearest
+hit so far.
 """
 
 from __future__ import annotations
@@ -315,10 +316,11 @@ INTERSECTORS = (("spheres", intersect_spheres), ("boxes", intersect_boxes),
 def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
                     lod: bool = False, fine: bool = False,
                     presort: bool = True, impl=None) -> Hit:
-    """Nearest hit across every primitive table, then the BVH mesh, then
-    the cluster mesh.
+    """Nearest hit across every primitive table, then the BVH mesh, the
+    cluster mesh and the voxel grid.
 
-    The primitives' best t (+1e-3) clips both mesh sweeps' tmax. The
+    The primitives' best t (+1e-3) clips both mesh sweeps' tmax, and the
+    best t after them clips the voxel sweep's. The
     cluster set follows the population: ``lod`` and ``shadow`` -> the
     shadow proxy set, ``lod`` -> the LOD proxy set, ``fine`` -> the fine
     proxy set, each only when the scene has it; the proxy sets start at
@@ -332,27 +334,32 @@ def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
     for name, fn in INTERSECTORS:
         h = merge(h, fn(getattr(scene, name), o, d, tmin, tmax))
     mc = scene.mesh_clusters
-    if scene.mesh is None and mc is None:
+    if scene.mesh is None and mc is None and scene.voxels is None:
         return h
     t_clip = torch.minimum(_col(tmax, o)[:, 0], h.t + 1e-3)
     if scene.mesh is not None:
         from .mesh_bvh import intersect_mesh
         h = merge(h, intersect_mesh(scene.mesh, o, d, tmin, t_clip))
-    if mc is None:
-        return h
-    from .mesh_clusters import intersect_clusters
-    mc_tmin = tmin
-    proxy = None
-    if lod and shadow and scene.mesh_clusters_shadow is not None:
-        proxy = scene.mesh_clusters_shadow
-    elif lod and scene.mesh_clusters_lod is not None:
-        proxy = scene.mesh_clusters_lod
-    elif fine and scene.mesh_clusters_fine is not None:
-        mc = scene.mesh_clusters_fine
-    if proxy is not None:
-        mc = proxy
-        mc_tmin = torch.clamp(_col(tmin, o)[:, 0], min=mc.t_bias)
-    return merge(h, intersect_clusters(
-        mc, o, d, mc_tmin, t_clip,
-        any_hit=shadow and (scene.mesh_all_opaque or scene.binary_shadows),
-        presort=presort, impl=impl))
+    if mc is not None:
+        from .mesh_clusters import intersect_clusters
+        mc_tmin = tmin
+        proxy = None
+        if lod and shadow and scene.mesh_clusters_shadow is not None:
+            proxy = scene.mesh_clusters_shadow
+        elif lod and scene.mesh_clusters_lod is not None:
+            proxy = scene.mesh_clusters_lod
+        elif fine and scene.mesh_clusters_fine is not None:
+            mc = scene.mesh_clusters_fine
+        if proxy is not None:
+            mc = proxy
+            mc_tmin = torch.clamp(_col(tmin, o)[:, 0], min=mc.t_bias)
+        h = merge(h, intersect_clusters(
+            mc, o, d, mc_tmin, t_clip,
+            any_hit=shadow and (scene.mesh_all_opaque
+                                or scene.binary_shadows),
+            presort=presort, impl=impl))
+    if scene.voxels is not None:
+        from .dda import intersect_voxels
+        t_clip = torch.minimum(t_clip, h.t + 1e-3)
+        h = merge(h, intersect_voxels(scene.voxels, o, d, tmin, t_clip))
+    return h

@@ -43,9 +43,9 @@ SUB_W = 64      # rays per cull sub-bundle (frustum granularity)
 # The JAX kernel orders candidates by t with its low log2(VISIT_BATCH * kc)
 # mantissa bits replaced by the candidate's index, so hits within ~1e-4
 # relative t tie there. The winner key clears the same bits of t (ties then
-# go to the lower flat triangle id): with exact t the cluster_forced golden
-# misses 2e-3 at one cell, where a shared edge resolves to its other
-# triangle.
+# go to the earlier list entry, then the lower slot, as there): with exact
+# t the cluster_forced golden misses 2e-3 at one cell, where a shared edge
+# resolves to its other triangle.
 _JAX_VISIT_BATCH = 4
 _WOOP_ROWS = (0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 19)
 

@@ -6,7 +6,7 @@ the whole path trace of every pixel, producing the (12, H, W) f32
 G-buffer in ``PLANES`` order. The CUDA source is ``csrc/trace_kernel.cu``.
 
 ``scene_fits`` decides, before any launch, whether a scene takes the
-kernel: a scene without a mesh, textures or per-cell tint whose
+kernel: a scene without a mesh, voxels, textures or per-cell tint whose
 table and path stack fit in one block's shared memory (the JAX package's
 ``pallas_trace.scene_fits``, without its 160-row unroll budget, a TPU
 compile limit). Every other scene traces through the wavefront
@@ -92,10 +92,11 @@ def table_len(scene: SceneData) -> int:
 
 def scene_fits(scene: SceneData, cfg: RenderConfig = DEFAULT_CONFIG) -> bool:
     """Does the trace kernel take this scene? It traces primitive tables
-    with solid and checker surfaces only, and needs the packed table and
-    the path stack in one block's shared memory."""
+    (no mesh, no voxel grid) with solid and checker surfaces only, and
+    needs the packed table and the path stack in one block's shared
+    memory."""
     if (scene.mesh is not None or scene.mesh_clusters is not None
-            or scene.textures is not None):
+            or scene.textures is not None or scene.voxels is not None):
         return False
     if bool((scene.materials.proc == PROC_CELL_TINT).any()):
         return False

@@ -7,8 +7,8 @@ table equals the JAX builder's element for element
 (tests/test_torch_scene.py holds them equal). They are re-authored rather
 than imported because the JAX builders return jnp arrays and import jax.
 ``SCENE_BUILDERS`` also registers the mesh scenes of
-``scene/mesh_scenes.py`` and the museum of ``scene/showcase_scenes.py``,
-as the JAX registry does.
+``scene/mesh_scenes.py``, the voxel scenes of ``scene/voxel_scenes.py``
+and the museum of ``scene/showcase_scenes.py``, as the JAX registry does.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from .materials import PROC_TEXTURE, Material
 from .mesh_scenes import MESH_SCENE_BUILDERS
 from .showcase_scenes import SHOWCASE_SCENE_BUILDERS
 from .tables import SceneBuilder, SceneData
+from .voxel_scenes import VOXEL_SCENE_BUILDERS
 
 
 def build_test_scene() -> SceneData:
@@ -258,5 +259,6 @@ SCENE_BUILDERS = {
     "video_texture": build_video_texture,
     "glass": build_glass_showcase,
     **MESH_SCENE_BUILDERS,
+    **VOXEL_SCENE_BUILDERS,
     **SHOWCASE_SCENE_BUILDERS,
 }

@@ -12,12 +12,11 @@ and, by the same routing rules, its fine, LOD and shadow proxy sets
 scene to another device (``SceneData.to``) rebuilds the LBVH there, so on
 the card it is built on the card. Textures form one (T, H, W, 3) bank
 padded to the largest image; a video texture is a bank slot that the
-renderer refreshes from its reader (video/textures.py).
+renderer refreshes from its reader (video/textures.py). A voxel grid
+(ops/dda.py) rides in ``voxels``, which the voxel builders
+(scene/voxel_scenes.py) and the streamed world (world/volume_scene.py) set.
 ``scene_from_numpy`` carries a JAX ``SceneData`` flattened to numpy (see
 ``SceneData.to_numpy`` for the keys) into the port.
-
-Voxel worlds are not ported yet; a scene that holds one raises
-``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.dda import VoxelWorld
 from ..ops.lbvh import build_lbvh
 from ..ops.mesh_bvh import MeshBVH
 from ..ops.mesh_clusters import (MeshClusters, build_clusters,
@@ -52,11 +52,11 @@ CLUSTER_SETS = ("mesh_clusters", "mesh_clusters_lod", "mesh_clusters_fine",
                 "mesh_clusters_shadow")
 _CLUSTER_FIELDS = ("cbmin", "cbmax", "gmat", "tri_rows", "bounds")
 _MESH_FIELDS = tuple(f.name for f in dataclasses.fields(MeshBVH))
+_VOXEL_FIELDS = tuple(f.name for f in dataclasses.fields(VoxelWorld))
 
 PRIMITIVE_TABLES = ("spheres", "boxes", "rects", "cylinders", "disks",
                     "planes", "triangles")
 _VECTORS = ("ambient_color", "ambient_intensity", "bg_top", "bg_bottom")
-_UNPORTED = {"voxels": "voxel worlds: ROADMAP.md Queue 1 item 11"}
 
 
 def _pad_rows(arr: np.ndarray, n: int) -> np.ndarray:
@@ -227,6 +227,8 @@ class SceneData(Tensors):
     # (T, H, W, 3) texture bank; a video texture's slot changes per frame.
     textures: Optional[torch.Tensor] = None
     has_dynamic_textures: bool = False
+    # Dense voxel grid traced by the DDA (None: absent).
+    voxels: Optional[VoxelWorld] = None
 
     @property
     def device(self) -> torch.device:
@@ -275,6 +277,9 @@ class SceneData(Tensors):
             d["textures"] = self.textures.cpu().numpy()
         if self.has_dynamic_textures:
             d["has_dynamic_textures"] = np.asarray(True)
+        if self.voxels is not None:
+            for f in _VOXEL_FIELDS:
+                d[f"voxels.{f}"] = getattr(self.voxels, f).cpu().numpy()
         return d
 
 
@@ -295,12 +300,8 @@ def _clusters_from_numpy(d: dict, sname: str) -> Optional[MeshClusters]:
 def scene_from_numpy(d: dict) -> SceneData:
     """Build a ``SceneData`` from the flat numpy dict of ``to_numpy``.
 
-    Raises ``NotImplementedError`` if the dict sets a voxel field, and
-    ``KeyError`` for a key this format does not know.
+    Raises ``KeyError`` for a key this format does not know.
     """
-    for key, what in _UNPORTED.items():
-        if d.get(key) is not None and bool(np.any(d[key])):
-            raise NotImplementedError(f"{what} is not ported")
     known = {f"{t}.{f.name}" for t, cls in _TABLE_TYPES.items()
              for f in dataclasses.fields(cls)}
     known |= set(_VECTORS) | {"name", "binary_shadows", "defaults",
@@ -309,7 +310,8 @@ def scene_from_numpy(d: dict) -> SceneData:
               for f in _CLUSTER_FIELDS + ("t_bias",)}
     known |= {f"mesh.{f}" for f in _MESH_FIELDS}
     known |= {"textures", "has_dynamic_textures"}
-    unknown = set(d) - known - set(_UNPORTED)
+    known |= {f"voxels.{f}" for f in _VOXEL_FIELDS}
+    unknown = set(d) - known
     if unknown:
         raise KeyError(f"unknown scene fields {sorted(unknown)}")
     tables = {t: cls(**{f.name: torch.from_numpy(
@@ -324,6 +326,10 @@ def scene_from_numpy(d: dict) -> SceneData:
     if "mesh.bmin" in d:
         mesh = MeshBVH(**{f: torch.from_numpy(np.array(d[f"mesh.{f}"]))
                           for f in _MESH_FIELDS})
+    voxels = None
+    if "voxels.cells" in d:
+        voxels = VoxelWorld(**{f: torch.from_numpy(np.array(d[f"voxels.{f}"]))
+                               for f in _VOXEL_FIELDS})
     textures = d.get("textures")
     return SceneData(
         **tables,
@@ -336,6 +342,7 @@ def scene_from_numpy(d: dict) -> SceneData:
         textures=(None if textures is None
                   else torch.from_numpy(np.array(textures, np.float32))),
         has_dynamic_textures=bool(d.get("has_dynamic_textures", False)),
+        voxels=voxels,
         **{sname: _clusters_from_numpy(d, sname) for sname in CLUSTER_SETS})
 
 
@@ -361,6 +368,7 @@ class SceneBuilder:
         self.bg_top = (0.6, 0.8, 1.0)
         self.bg_bottom = (1.0, 1.0, 1.0)
         self.binary_shadows = False
+        self.voxels: Optional[VoxelWorld] = None
         self.default_pos = (0.0, 1.0, 0.0)
         self.default_yaw = 0.0
         self.default_pitch = 0.0
@@ -563,4 +571,4 @@ class SceneBuilder:
             mesh_all_opaque=all(self.bank._mats[mid].transparency <= 0.0
                                 for _, mid in self._mesh_tris),
             textures=textures, has_dynamic_textures=self.has_dynamic_textures,
-            **clusters)
+            voxels=self.voxels, **clusters)

@@ -4,8 +4,11 @@
         [--scene dragon] [--size 240x135] [--wall-frames 20] [--prof-frames 5]
 
 Renders a scene of ``SCENE_BUILDERS`` (by default the dragon at 240x135
-cells; ss=1, default ``RenderConfig``) with the kernels
-(``impl="kernel"``) after three warm-up frames:
+cells; ss=1, default ``RenderConfig``), or with ``--scene minecraft_like``
+the default streamed island (``world/volume_scene.py``, settled, one
+update, seen from 6 above the spawn at pitch -0.35) and with
+``--scene minecraft_like_dda`` the same island forced onto the voxel DDA,
+with the kernels (``impl="kernel"``) after three warm-up frames:
 
 1. for a cluster scene, one frame with a CUDA-event pair around every
    cluster sweep (K3): its
@@ -15,13 +18,13 @@ cells; ss=1, default ``RenderConfig``) with the kernels
    time; then each sweep on its own, by CUDA events over 20 launches;
 2. ``WALL_FRAMES`` frames with the profiler off: ms/frame by a
    synchronised host clock and by CUDA events, rays/frame, the kernel
-   wrappers' launches per frame and, for a BVH-mesh scene, the walk's
-   sweeps per frame with its rounds, host waits and compactions per sweep
-   (``mesh_bvh.STATS``);
+   wrappers' launches per frame and, for a BVH-mesh or voxel scene, the
+   walk's or the DDA's sweeps per frame with its rounds, host waits and
+   compactions per sweep (``mesh_bvh.STATS``, ``dda.STATS``);
 3. ``PROF_FRAMES`` frames under ``torch.profiler`` with a range around each
    stage (K2, tile cull, the rest of ``intersect_clusters``, K3, the BVH
-   walk, shadow rays, compaction, post): device busy time (the union of
-   device operations)
+   walk, the voxel DDA, shadow rays, compaction, post): device busy time
+   (the union of device operations)
    split by the innermost stage that encloses each operation, device
    kernels and copies per frame, and the host time inside each stage.
 
@@ -52,6 +55,7 @@ STAGES = (
     ("mesh_clusters.intersect_clusters",
      "prefilter, binning sort, unsort, resolve (torch)"),
     ("mesh_bvh.intersect_mesh", "BVH walk (torch)"),
+    ("dda.intersect_voxels", "voxel DDA (torch)"),
     ("trace.transmittance_to_lights", "shadow rays outside the sweep (torch)"),
     ("trace._compact", "compaction (torch)"),
     ("post_kernel.post", "K1 post"),
@@ -173,11 +177,11 @@ def busy_by_stage(ops, spans) -> dict:
 def _patch_stages(record_function):
     """Wrap each stage's module attribute in a profiler range; returns a
     function that undoes it."""
-    from ..ops import (cluster_kernel, mesh_bvh, mesh_clusters, post_kernel,
-                       trace, trace_kernel)
+    from ..ops import (cluster_kernel, dda, mesh_bvh, mesh_clusters,
+                       post_kernel, trace, trace_kernel)
     mods = dict(cluster_kernel=cluster_kernel, mesh_clusters=mesh_clusters,
-                mesh_bvh=mesh_bvh, trace=trace, post_kernel=post_kernel,
-                trace_kernel=trace_kernel)
+                mesh_bvh=mesh_bvh, dda=dda, trace=trace,
+                post_kernel=post_kernel, trace_kernel=trace_kernel)
     saved = []
     for path, label in STAGES:
         mod_name, attr = path.split(".")
@@ -268,7 +272,7 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from ..ops import kernels, mesh_bvh
+    from ..ops import dda, kernels, mesh_bvh
     from ..render.renderer import RaytraceRenderer
     from ..scene.builders import SCENE_BUILDERS
 
@@ -279,8 +283,19 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     lines = [f"card: {card}; scene {args.scene} {W}x{H} cells, ss=1, "
              f"default RenderConfig, impl=kernel"]
-    scene = SCENE_BUILDERS[args.scene]().to(dev)
-    r = RaytraceRenderer(scene, W, H, device=dev, impl="kernel")
+    if args.scene.startswith("minecraft_like"):
+        from ..world.volume_scene import build_minecraft_like
+        vs = build_minecraft_like(surface_mesh=args.scene == "minecraft_like",
+                                  device=dev)
+        try:
+            scene = vs.update(1.0 / 30.0)
+        finally:
+            vs.manager.shutdown()
+        r = RaytraceRenderer(scene, W, H, device=dev, impl="kernel")
+        r.set_camera((vs.pos[0], vs.pos[1] + 6.0, vs.pos[2]), 0.0, -0.35)
+    else:
+        scene = SCENE_BUILDERS[args.scene]().to(dev)
+        r = RaytraceRenderer(scene, W, H, device=dev, impl="kernel")
     r.render_many(3)
     torch.cuda.synchronize()
 
@@ -291,6 +306,7 @@ def main(argv=None) -> int:
     n = args.wall_frames
     kernels.reset_launches()
     mesh_bvh.STATS.clear()
+    dda.STATS.clear()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -306,14 +322,16 @@ def main(argv=None) -> int:
         f"{start.elapsed_time(stop) / n:.4f} ms/frame by CUDA events; "
         f"{int(out.rays_traced)} rays/frame (last frame); kernel wrapper "
         f"launches per frame {launches}")
-    bvh = dict(mesh_bvh.STATS)
-    if bvh:
-        sw = bvh["sweeps"]
+    for label, mod in (("BVH walk", mesh_bvh), ("voxel DDA", dda)):
+        st = dict(mod.STATS)
+        if not st:
+            continue
+        sw = st["sweeps"]
         lines.append(
-            f"BVH walk: {sw / n:.1f} sweeps/frame; per sweep "
-            f"{bvh['rounds'] / sw:.1f} rounds, {bvh['waits'] / sw:.1f} host "
-            f"waits, {bvh.get('compactions', 0) / sw:.2f} compactions "
-            f"(a wait every {mesh_bvh.CHECK_EVERY} rounds)")
+            f"{label}: {sw / n:.1f} sweeps/frame; per sweep "
+            f"{st['rounds'] / sw:.1f} rounds, {st['waits'] / sw:.1f} host "
+            f"waits, {st.get('compactions', 0) / sw:.2f} compactions "
+            f"(a wait every {mod.CHECK_EVERY} rounds)")
 
     # 3. Profiler on, with stage ranges.
     n = args.prof_frames
