@@ -67,9 +67,27 @@ Phases (one line each; any failure raises and exits non-zero):
      160x90: kernel vs plain renderer on one frame, ms/frame and DDA rounds
  19. one frame each of ``teapot``, ``cow``, ``all_meshes`` and ``museum``
      on the card against the port's plain renderer on the CPU
+ 20. dynamic scenes: ``exhibit_ring`` and ``spinning_mesh`` patched on the
+     card (``DynamicScene.at_time``, the spinning mesh's LBVH rebuilt
+     there) equal to the CPU at t = 0, 1.3 and 2.0, with the patch time;
+     at 160x90 (bench_suite's "Spinning mesh" row) kernel vs plain
+     renderer over 2 frames of ``render_many(times=, scene_fn=)``, then a
+     timed ``render_many`` of 4 (``spinning_mesh``) and 10
+     (``exhibit_ring``) frames: K1 launched, K2 not
+ 21. the terminal program (``engine.program.main``, fd 1 on a temporary
+     file) on Cornell at 160x90 for 60 ticks with ``--batch 1`` and
+     ``--batch 8``: ANSI frames and HUD written, K2 and K1 launched, the
+     native encoder loaded, ms a tick from the HUD beside ``render_many``'s
+     ms/frame of the same frame; then the batched component against the
+     unbatched one (Cornell 160x90 K=4, ``spinning_mesh`` 48x28 K=3):
+     fg/bg grids bit-equal, RGB within 1/255
+ 22. the video mode's frame on the card vs the CPU (RGB within 1e-5, ANSI
+     equal); the SCNE snapshot of Cornell on the card byte-equal to the
+     CPU's; a replica read onto the card renders as the original
 Then a JSON line of per-kernel results (``ms`` is the device time,
 ``event_ms`` the CUDA-event time; ``launches`` counts Cornell's timed run for
-K1 and K2 and the dragon's for K3, ``launches_by_path`` every timed run),
+K1 and K2 and the dragon's for K3, ``launches_by_path`` every timed run and
+the shell's runs),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -79,9 +97,11 @@ Imports nothing of JAX: the JAX package is not needed on the card.
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -122,6 +142,10 @@ VOXEL_FRAMES = 100              # voxel_test 160x90 through K2
 VOXEL_DDA_FRAMES = 10           # its DDA form, the torch DDA
 ORBIT_POSES = 64                # bench_suite's island orbit
 DDA_ISLAND_FRAMES = 6           # the forced-DDA island
+DYNAMIC_TIMES = (0.0, 1.3, 2.0)
+SPIN_FRAMES = 4                 # bench_suite's "Spinning mesh" row, 160x90
+RING_FRAMES = 10
+SHELL_TICKS = 60                # the terminal program's frames
 # fp32 operations per K2 ray-primitive test (a slab test: 6 sub, 6 mul,
 # 12 min/max) and per K1 pixel (TAA 3x3 clamp ~100; three 5x5 a-trous
 # passes of 25 taps x ~30; exposure and tail ~60). Least times follow
@@ -253,12 +277,23 @@ def hit_contract(got, want) -> dict:
             if hit.any() else 1.0}
 
 
-def timed_frames(r, n: int, keys, warmup: int = 2, poses=None) -> dict:
+def frame_times(first: int, n: int):
+    """Times of frames first..first+n-1 of a dynamic scene at 30 fps."""
+    return [(first + k) / 30.0 for k in range(n)]
+
+
+def timed_frames(r, n: int, keys, warmup: int = 2, poses=None,
+                 scene_fn=None) -> dict:
     """Warm up ``r`` for ``warmup`` frames, then time ``r.render_many(n)``
-    (along ``poses`` when given) with every launch count set to 0 just
-    before and read just after; each kernel of ``keys`` must have
-    launched."""
-    r.render_many(warmup, poses=None if poses is None else poses[:warmup])
+    (along ``poses`` when given; frames of ``scene_fn`` at 30 fps when
+    given) with every launch count set to 0 just before and read just
+    after; each kernel of ``keys`` must have launched."""
+    dyn = {} if scene_fn is None else dict(scene_fn=scene_fn,
+                                           times=frame_times(0, warmup))
+    r.render_many(warmup, poses=None if poses is None else poses[:warmup],
+                  **dyn)
+    if scene_fn is not None:
+        dyn["times"] = frame_times(warmup, n)
     torch.cuda.synchronize()
     kernels.reset_launches()
     mesh_bvh.STATS.clear()
@@ -267,7 +302,7 @@ def timed_frames(r, n: int, keys, warmup: int = 2, poses=None) -> dict:
     stop = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    grids, out = r.render_many(n, poses=poses)
+    grids, out = r.render_many(n, poses=poses, **dyn)
     stop.record()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
@@ -296,18 +331,25 @@ def idle_share(r, poses) -> dict:
             "idle_share": 1.0 - busy / wall}
 
 
-def renderer_contract(scene, w, h, dev, frames: int = 4, cam=None):
+def renderer_contract(scene, w, h, dev, frames: int = 4, cam=None,
+                      scene_fn=None):
     """Kernel vs plain renderer on the card over ``frames`` frames (from
-    camera ``cam`` = (pos, yaw, pitch) when given): RGB within 2e-3, ANSI
-    flips under 0.5%, equal rays_traced. Returns (the errors, the kernel
-    renderer)."""
+    camera ``cam`` = (pos, yaw, pitch) when given; for a dynamic scene,
+    frames of ``scene_fn`` at 30 fps with ``scene`` set as not static):
+    RGB within 2e-3, ANSI flips under 0.5%, equal rays_traced. Returns
+    (the errors, the kernel renderer)."""
     rk = RaytraceRenderer(scene, w, h, device=dev, impl="kernel")
     rp = RaytraceRenderer(scene, w, h, device=dev, impl="plain")
+    dyn = {}
+    if scene_fn is not None:
+        dyn = dict(scene_fn=scene_fn, times=frame_times(0, frames))
+        for r in (rk, rp):
+            r.set_scene(scene, static=False)
     if cam is not None:
         rk.set_camera(*cam)
         rp.set_camera(*cam)
-    gk, ok_ = rk.render_many(frames)
-    gp, op_ = rp.render_many(frames)
+    gk, ok_ = rk.render_many(frames, **dyn)
+    gp, op_ = rp.render_many(frames, **dyn)
     err = max(np.abs(_np(ok_.top_rgb) - _np(op_.top_rgb)).max(),
               np.abs(_np(ok_.bot_rgb) - _np(op_.bot_rgb)).max())
     flips = float(np.mean([(_np(a) != _np(b)).mean()
@@ -504,6 +546,227 @@ def island_phases(dev, card):
           f"{idle['ops']:.1f} device operations/frame, idle share "
           f"{idle['idle_share']:.4f}", flush=True)
     return orbit, run
+
+
+def same_dynamic_frame(card, cpu) -> dict:
+    """Hold a dynamic scene's frame patched on the card to the same frame
+    patched on the CPU: every table within 1e-6 (an LBVH's node boxes
+    included) and every integer table, its leaf order included, equal."""
+    a, b = card.to_numpy(), cpu.to_numpy()
+    assert sorted(a) == sorted(b)
+    err = 0.0
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+        if a[k].dtype.kind == "f" and a[k].size:
+            e = float(np.abs(a[k] - b[k]).max())
+            assert e <= 1e-6, f"{k} differs by {e}"
+            err = max(err, e)
+        else:
+            assert np.array_equal(a[k], b[k]), f"{k} differs"
+    return {"max_abs": err, "bvh_nodes": int(a["mesh.bmin"].shape[0])
+            if "mesh.bmin" in a else 0}
+
+
+def dynamic_phases(dev, card) -> dict:
+    """Phase 20: ``exhibit_ring`` and ``spinning_mesh`` patched on the card
+    equal to the CPU at several times, then rendered at 160x90 through
+    ``render_many(times=, scene_fn=)``: kernel vs plain renderer and a
+    timed run. Returns the timed runs by scene."""
+    from yetanotherconsolegameengine_tpu_torch.scene.showcase_scenes import (
+        build_exhibit_ring, build_spinning_mesh)
+    runs = {}
+    for name, build, frames in (("exhibit_ring", build_exhibit_ring,
+                                 RING_FRAMES),
+                                ("spinning_mesh", build_spinning_mesh,
+                                 SPIN_FRAMES)):
+        cpu = build()
+        dyn = cpu.to(dev)
+        assert dyn.device.type == "cuda"
+        tables = {str(t): same_dynamic_frame(dyn.at_time(t), cpu.at_time(t))
+                  for t in DYNAMIC_TIMES}
+        patch_ms = cuda_ms(lambda: dyn.at_time(1.3), 10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            dyn.at_time(1.3)
+        torch.cuda.synchronize()
+        patch_host = (time.perf_counter() - t0) * 1e3 / 10
+        err, rk = renderer_contract(dyn.at_time(0.0), FB_W, FB_H, dev,
+                                    frames=2, scene_fn=dyn.at_time)
+        run = timed_frames(rk, frames, ("post",), warmup=1,
+                           scene_fn=dyn.at_time)
+        assert run["launches"]["trace"] == 0, "a dynamic scene took K2"
+        runs[name] = run
+        print(f"phase 20 {card} {name}: at_time on the card vs the CPU at t "
+              f"{list(DYNAMIC_TIMES)}: {json.dumps(tables)}; at_time "
+              f"(table patches{', LBVH rebuild' if name == 'spinning_mesh' else ''}"
+              f") {patch_ms:.4f} ms by CUDA events, {patch_host:.4f} by host "
+              f"clock; {FB_W}x{FB_H} kernel vs plain renderer over 2 frames "
+              f"of render_many(times=, scene_fn=): {json.dumps(err)}; "
+              f"render_many({frames}): {run['ms']:.4f} ms/frame by CUDA "
+              f"events, {run['host_ms']:.4f} by host clock, {run['rays']} "
+              f"rays/frame (last frame), {run['mray_s']:.4f} Mray/s, "
+              f"at_time {patch_ms / run['ms']:.2%} of a frame; launches "
+              f"{run['launches']}; BVH walk {run['bvh']}", flush=True)
+    return runs
+
+
+_TICK_MS = re.compile(rb"fps \|\s*([0-9.]+) ms \|")
+
+
+def run_program(argv):
+    """Run the shell's ``main`` with fd 1 on a temporary file (its ANSI
+    must not reach this script's stdout). Returns (exit code, what it
+    wrote, wall seconds)."""
+    from yetanotherconsolegameengine_tpu_torch.engine.program import main
+    sys.stdout.flush()
+    with tempfile.TemporaryFile() as f:
+        saved = os.dup(1)
+        os.dup2(f.fileno(), 1)
+        t0 = time.perf_counter()
+        try:
+            rc = main(argv)
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        wall = time.perf_counter() - t0
+        f.seek(0)
+        data = f.read()
+    return rc, data, wall
+
+
+def component_blits(scene: str, batch: int, w: int, h: int, ticks: int,
+                    dev):
+    """The framebuffer planes a ``RaytraceComponent`` blits on each of
+    ``ticks`` ticks at 30 fps, with no input."""
+    from yetanotherconsolegameengine_tpu_torch.engine.chexel import (
+        Framebuffer)
+    from yetanotherconsolegameengine_tpu_torch.engine.raytrace_entity import (
+        RaytraceComponent)
+    fb = Framebuffer(w, h)
+    c = RaytraceComponent(fb, scene_names=[scene], enable_world=False,
+                          batch=batch, device=dev)
+    c.show_hud = False
+    seq = []
+    try:
+        for _ in range(ticks):
+            c.update(1.0 / 30.0)
+            seq.append((fb.fg_ansi.copy(), fb.bg_ansi.copy(),
+                        fb.fg_rgb.copy(), fb.bg_rgb.copy()))
+    finally:
+        c.close()
+    return seq
+
+
+def batched_contract(scene: str, batch: int, w: int, h: int, ticks: int,
+                     dev) -> dict:
+    """The batched component blits the unbatched one's frames (tick t
+    shows frame t-1 on both): fg/bg grids bit-equal, RGB within 1/255.
+    Launch counts cover both components."""
+    kernels.reset_launches()
+    one = component_blits(scene, 1, w, h, ticks, dev)
+    many = component_blits(scene, batch, w, h, ticks, dev)
+    launches = dict(kernels.LAUNCHES)
+    rgb = 0.0
+    for t in range(1, ticks):
+        for i in (0, 1):
+            assert np.array_equal(many[t][i], one[t][i]), (scene, t, i)
+        rgb = max(rgb, *(float(np.abs(many[t][i] - one[t][i]).max())
+                         for i in (2, 3)))
+    assert rgb <= 1.0 / 255.0 + 1e-7, (scene, rgb)
+    return {"scene": scene, "batch": batch, "size": f"{w}x{h}",
+            "ticks": ticks, "rgb": rgb, "launches": launches}
+
+
+def shell_phases(dev, card) -> dict:
+    """Phase 21: the terminal program on the card, Cornell at 160x90 with
+    --batch 1 and 8 (ms a tick from its HUD line, against render_many's
+    ms/frame of the same frame), then the batched component against the
+    unbatched one for Cornell and spinning_mesh."""
+    from yetanotherconsolegameengine_tpu_torch import native
+    argv = ["--scene", "cornell", "--frames", str(SHELL_TICKS), "--size",
+            f"{FB_W}x{FB_H}", "--no-world", "--non-interactive"]
+    shell = {}
+    for batch in (1, 8):
+        kernels.reset_launches()
+        rc, data, wall = run_program(argv + ["--batch", str(batch)])
+        launches = dict(kernels.LAUNCHES)
+        assert rc == 0, f"program exited {rc}"
+        assert b"\x1b[38;5;" in data and "\u2580".encode() in data \
+            and b"fps" in data, "no ANSI frame or HUD in the output"
+        assert launches["trace"] > 0 and launches["post"] > 0, launches
+        ticks = [float(x) for x in _TICK_MS.findall(data)]
+        assert len(ticks) == SHELL_TICKS, len(ticks)
+        shell[batch] = {"tick_ms": float(np.mean(ticks[10:])),
+                        "tick_ms_all": float(np.mean(ticks)),
+                        "tick_ms_max": max(ticks), "wall_s": wall,
+                        "bytes": len(data), "launches": launches}
+    lib = native.load()
+    assert lib is not None, "the native ANSI encoder did not load"
+    r = RaytraceRenderer(SCENE_BUILDERS["cornell"](), FB_W, FB_H, device=dev)
+    frame = timed_frames(r, SHELL_TICKS, ("trace", "post"), warmup=10)
+    print(f"phase 21a {card} program cornell {FB_W}x{FB_H}, {SHELL_TICKS} "
+          f"ticks: --batch 1 {shell[1]['tick_ms']:.4f} ms a tick (ticks "
+          f"11-{SHELL_TICKS}; {shell[1]['tick_ms_all']:.4f} over all, max "
+          f"{shell[1]['tick_ms_max']:.1f}), --batch 8 "
+          f"{shell[8]['tick_ms']:.4f} ({shell[8]['tick_ms_all']:.4f} over "
+          f"all, max {shell[8]['tick_ms_max']:.1f}); render_many("
+          f"{SHELL_TICKS}) of the same frame {frame['ms']:.4f} ms/frame by "
+          f"CUDA events, {frame['host_ms']:.4f} by host clock; runs "
+          f"{json.dumps(shell)}; native encoder {lib._name}", flush=True)
+    checks = [batched_contract("cornell", 4, FB_W, FB_H, 9, dev),
+              batched_contract("spinning_mesh", 3, 48, 28, 4, dev)]
+    assert checks[0]["launches"]["trace"] > 0
+    assert checks[1]["launches"]["post"] > 0
+    assert checks[1]["launches"]["trace"] == 0
+    print(f"phase 21b {card} batched component vs unbatched on the card: "
+          f"{json.dumps(checks)}", flush=True)
+    return {"shell": shell, "frame": frame, "checks": checks}
+
+
+class _OneFrame:
+    """A reader that always hands out one frame."""
+
+    def __init__(self, frame):
+        self.frame = frame
+
+    def try_get_frame(self):
+        return self.frame
+
+
+def video_sync_phase(dev, card) -> None:
+    """Phase 22: the video mode's frame on the card vs the CPU; the SCNE
+    snapshot of a scene on the card equal to the CPU's; a replica read
+    onto the card renders as the original."""
+    from yetanotherconsolegameengine_tpu_torch.net.scene_sync import (
+        read_snapshot, write_snapshot)
+    from yetanotherconsolegameengine_tpu_torch.video.readers import (
+        SyntheticReader)
+    from yetanotherconsolegameengine_tpu_torch.video.renderer import (
+        VideoRenderer)
+    frame = SyntheticReader(width=320, height=180).try_get_frame()
+    vr = VideoRenderer(_OneFrame(frame), FB_W, FB_H, device=dev)
+    got = vr.render()
+    want = VideoRenderer(_OneFrame(frame), FB_W, FB_H, device="cpu").render()
+    rgb = max(float((got[k].cpu() - want[k]).abs().max()) for k in (0, 1))
+    assert rgb <= 1e-5, f"video RGB differs by {rgb}"
+    assert all(torch.equal(got[k].cpu(), want[k]) for k in (2, 3)), "ANSI"
+    video_ms = cuda_ms(vr.render, 20)
+    cornell = SCENE_BUILDERS["cornell"]()
+    snap = write_snapshot(cornell.to(dev))
+    assert snap == write_snapshot(cornell), "snapshot bytes differ"
+    replica = read_snapshot(io.BytesIO(snap), device=dev)
+    assert replica.device.type == "cuda"
+    outs = [RaytraceRenderer(sc, 48, 28, device=dev).render_many(4)
+            for sc in (cornell, replica)]
+    assert torch.equal(outs[0][1].top_rgb, outs[1][1].top_rgb)
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][0], outs[1][0]))
+    print(f"phase 22 {card} video mode {FB_W}x{FB_H} from a 320x180 frame: "
+          f"card vs CPU RGB {rgb:.3g}, ANSI equal, {video_ms:.4f} ms a frame "
+          f"by CUDA events; cornell snapshot from the card equals the CPU's "
+          f"({len(snap)} bytes); the replica read onto the card renders "
+          f"equal over 4 frames", flush=True)
 
 
 def main() -> int:
@@ -963,6 +1226,15 @@ def main() -> int:
     print(f"phase 19 {card} small-mesh scenes, card (kernels) vs the CPU "
           f"(plain), 48x28, 1 frame: {json.dumps(mesh_err)}", flush=True)
 
+    # ---- 20-22. dynamic scenes, the shell, video mode and scene sync -----
+    dyn_runs = dynamic_phases(dev, card)
+    shell = shell_phases(dev, card)
+    video_sync_phase(dev, card)
+    shell_launches = {
+        "shell_cornell": shell["shell"][1]["launches"],
+        "shell_cornell_batch8": shell["shell"][8]["launches"],
+        "shell_spinning_mesh": shell["checks"][1]["launches"]}
+
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [
@@ -977,7 +1249,9 @@ def main() -> int:
          "bound_by": k2_bound[1], "library_ms": None,
          "launches_by_path": {"cornell": launches["trace"],
                               "demo_random": demo_run["launches"]["trace"],
-                              "voxel_test": room_run["launches"]["trace"]},
+                              "voxel_test": room_run["launches"]["trace"],
+                              **{k: v["trace"]
+                                 for k, v in shell_launches.items()}},
          "demo_random": {"ms": demo_k2, "plain_ms": demo_k2p,
                          "bound_ms": demo_bound[0],
                          "bound_by": demo_bound[1]}},
@@ -998,7 +1272,11 @@ def main() -> int:
                               "voxel_test_dda": droom_run["launches"]["post"],
                               **{f"island_{k}": v["launches"]["post"]
                                  for k, v in orbit.items()},
-                              "island_dda": dda_run["launches"]["post"]}},
+                              "island_dda": dda_run["launches"]["post"],
+                              **{k: v["launches"]["post"]
+                                 for k, v in dyn_runs.items()},
+                              **{k: v["post"]
+                                 for k, v in shell_launches.items()}}},
         {"name": "clusters", "route": "cuda",
          "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
                    "cluster_kernel.cu",
@@ -1011,7 +1289,9 @@ def main() -> int:
          "library_ms": None,
          "launches_by_path": {"dragon": d_launches["clusters"],
                               **{f"island_{k}": v["launches"]["clusters"]
-                                 for k, v in orbit.items()}}},
+                                 for k, v in orbit.items()},
+                              **{k: v["clusters"]
+                                 for k, v in shell_launches.items()}}},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -479,3 +479,61 @@ def test_dda_on_the_card_equals_the_cpu(dev, compact):
     res = hit_contract(got, dda.intersect_voxels(cave.voxels, o, d, 1e-3,
                                                  INF))
     assert res["hits"] > 1000 and res["t_bit_equal"] == 1.0
+
+
+@pytest.mark.parametrize("name", ["exhibit_ring", "spinning_mesh"])
+def test_dynamic_scene_at_time_on_the_card_equals_the_cpu(dev, name):
+    """DynamicScene.at_time patched on the card (the spinning mesh's LBVH
+    rebuilt there) equals the CPU's: tables within 1e-6, leaf order
+    equal; the base scene is never written."""
+    from chip_smoke import same_dynamic_frame
+    cpu = SCENE_BUILDERS[name]()
+    card = cpu.to(dev)
+    base = card.base.to_numpy()
+    for t in (0.0, 1.3, 2.0):
+        same_dynamic_frame(card.at_time(t), cpu.at_time(t))
+    for k, v in card.base.to_numpy().items():
+        assert np.array_equal(v, base[k]), k
+
+
+def test_scene_setter_on_the_card(dev):
+    """``renderer.scene = ...`` on the card: a static scene that fits is
+    repacked for K2 and changes the frame; under static=False it stays on
+    the wavefront (K1 only) and a dynamic frame renders as the CPU's."""
+    r = RaytraceRenderer(SCENE_BUILDERS["cornell"](), 32, 20, device=dev)
+    before = r.render().top_rgb.clone()
+    r.scene = SCENE_BUILDERS["glass"]()
+    assert isinstance(r.packed, trace_kernel.PackedScene)
+    kernels.reset_launches()
+    after = r.render().top_rgb
+    assert kernels.LAUNCHES["trace"] == 1
+    assert float((after - before).abs().mean()) > 0.1
+    dyn = SCENE_BUILDERS["exhibit_ring"]().to(dev)
+    r.set_scene(dyn.at_time(0.0), static=False)
+    cpu = RaytraceRenderer(dyn.base, 32, 20, device="cpu")
+    cpu.set_scene(dyn.at_time(0.0), static=False)
+    kernels.reset_launches()
+    for t in (0.1, 0.2):
+        r.scene = dyn.at_time(t)
+        cpu.scene = dyn.at_time(t)
+        got, want = r.render(), cpu.render()
+    assert kernels.LAUNCHES["trace"] == 0 and kernels.LAUNCHES["post"] == 2
+    np.testing.assert_allclose(got.top_rgb.cpu().numpy(),
+                               want.top_rgb.numpy(), atol=2e-3)
+
+
+def test_program_headless_on_the_card(dev):
+    """The terminal program on the card (its default device), ANSI to a
+    temporary file: frames, HUD, both kernels and the native encoder."""
+    from chip_smoke import run_program
+    from yetanotherconsolegameengine_tpu_torch import native
+    for batch in ("1", "3"):
+        kernels.reset_launches()
+        rc, data, _ = run_program(["--scene", "cornell", "--frames", "6",
+                                   "--size", "40x20", "--no-world",
+                                   "--non-interactive", "--batch", batch])
+        assert rc == 0
+        assert b"\x1b[38;5;" in data and "▀".encode() in data
+        assert b"fps" in data
+        assert kernels.LAUNCHES["trace"] > 0 and kernels.LAUNCHES["post"] > 0
+    assert native.load() is not None

@@ -1,10 +1,10 @@
 """The frame engine: frame state, frame step, frame scan, renderer.
 
-Port of ``yetanotherconsolegameengine_tpu/render/renderer.py`` for static
-scenes: primitive tables, meshes and textures, video textures included. A
-frame traces at ``hi_w = fb_w * ss`` by ``hi_h = fb_h * 2 * ss`` pixels
-(two pixels per '▀' character cell) and returns per-cell colors and
-ANSI-256 indices.
+Port of ``yetanotherconsolegameengine_tpu/render/renderer.py``: primitive
+tables, meshes, voxels and textures, video textures and scenes that
+change per frame included. A frame traces at ``hi_w = fb_w * ss`` by
+``hi_h = fb_h * 2 * ss`` pixels (two pixels per '▀' character cell) and
+returns per-cell colors and ANSI-256 indices.
 
 ``set_scene`` routes by ``trace_kernel.scene_fits``, before any launch, as
 the JAX renderer does. On a CUDA device a scene that fits is two kernel
@@ -27,6 +27,16 @@ one to the other.
 indices and TAA resets of all N frames are computed on the device first,
 and each frame's kernels read their row, so the loop issues launches
 without waiting on the device.
+
+Dynamic scenes: ``set_scene(..., static=False)`` sends a scene to the
+wavefront whatever ``scene_fits`` says (``pack_scene`` builds the trace
+kernel's table through the host; the JAX renderer likewise bypasses its
+megakernel). Assigning ``renderer.scene`` swaps the scene the next frames
+render and keeps the frame state, as the app shell does every tick of a
+streamed or animated scene. ``render_many(times=, scene_fn=)`` renders
+frame k of the batch from ``scene_fn(times[k])`` (e.g.
+``DynamicScene.at_time``), with the times passed as Python floats, so a
+batch patches the same rows as the same frames rendered one by one.
 """
 
 from __future__ import annotations
@@ -219,13 +229,26 @@ def _rgb_u8(x: torch.Tensor) -> torch.Tensor:
 
 def frame_scan(packed, cams: CameraPose, state: FrameState, fb_w: int,
                fb_h: int, ss: int = 1, cfg: RenderConfig = DEFAULT_CONFIG,
-               impl: Optional[str] = None, stack_rgb: bool = False):
+               impl: Optional[str] = None, stack_rgb: bool = False,
+               scene_fn=None, ts=None):
     """Render N frames (``cams`` has a leading (N,) axis). Returns
     ((fg_u8, bg_u8[, top_u8, bot_u8]) stacked (N, fb_h, fb_w[, 3]), the
-    last FrameOutput, the final state)."""
+    last FrameOutput, the final state).
+
+    ``scene_fn`` + ``ts``: frame k renders the SceneData ``scene_fn(ts[k])``
+    (``ts``: N Python floats) through the wavefront, moved to the frame's
+    device if it is elsewhere; ``packed`` is then the scene's base and
+    must not be the trace kernel's packed tables, which cannot follow a
+    changing scene."""
     n = cams.pos.shape[0]
     dev = cams.pos.device
     impl = resolve_impl(impl, dev)
+    if scene_fn is not None:
+        if not isinstance(packed, SceneData):
+            raise ValueError("scene_fn needs a wavefront scene: set it with "
+                             "set_scene(..., static=False)")
+        if len(ts) != n:
+            raise ValueError(f"{len(ts)} times for {n} frames")
     inputs = frame_inputs(cams, state, fb_w * ss, fb_h * 2 * ss, cfg)
     if isinstance(packed, SceneData) and packed.has_dynamic_textures:
         # A live texture changes every frame: no history to blend.
@@ -236,7 +259,12 @@ def frame_scan(packed, cams: CameraPose, state: FrameState, fb_w: int,
                   for s in shapes)
     out = None
     for row in range(n):
-        out, state = frame_step(packed, cams, inputs, row, state, fb_w, fb_h,
+        scene = packed
+        if scene_fn is not None:
+            scene = scene_fn(ts[row])
+            if scene.device != dev:
+                scene = scene.to(dev)
+        out, state = frame_step(scene, cams, inputs, row, state, fb_w, fb_h,
                                 ss, cfg, impl)
         grids[0][row] = out.fg_ansi
         grids[1][row] = out.bg_ansi
@@ -267,23 +295,42 @@ class RaytraceRenderer:
         if fov_deg is not None:
             self.fov_deg = float(fov_deg)
 
-    def set_scene(self, scene: SceneData, reset_camera: bool = True):
-        """Move ``scene`` to the render device (an LBVH is rebuilt there)
-        and route it: the trace kernel's packed tables when it fits
+    def set_scene(self, scene: SceneData, reset_camera: bool = True,
+                  static: bool = True):
+        """Move ``scene`` to the render device (an LBVH is rebuilt there),
+        route it and start a fresh frame state. ``static=False`` marks
+        geometry that changes per frame: the scene, and every scene later
+        assigned to ``self.scene``, goes to the wavefront. A static scene
+        takes the trace kernel's packed tables when it fits
         (``trace_kernel.scene_fits``), else the wavefront."""
+        self.static = static
         scene = scene.to(self.device)
         if scene.has_dynamic_textures:
             # The reader slots are written in place: own the bank.
             scene = dataclasses.replace(scene,
                                         textures=scene.textures.clone())
         self.scene = scene
-        self.packed = (trace_kernel.pack_scene(scene)
-                       if trace_kernel.scene_fits(scene, self.cfg) else scene)
         self.state = init_state(self.fb_w, self.fb_h, self.ss, self.device)
         if reset_camera:
             d = scene.defaults
             self.cam_pos, self.yaw, self.pitch = list(d[0:3]), d[3], d[4]
             self.fov_deg = d[5]
+
+    @property
+    def scene(self) -> SceneData:
+        return self._scene
+
+    @scene.setter
+    def scene(self, scene: SceneData):
+        """Swap the scene the next frames render, keeping the frame state:
+        moved to the render device and routed under the current
+        ``static`` flag."""
+        scene = scene.to(self.device)
+        self._scene = scene
+        self.packed = (trace_kernel.pack_scene(scene)
+                       if self.static
+                       and trace_kernel.scene_fits(scene, self.cfg)
+                       else scene)
 
     def set_camera(self, pos, yaw, pitch):
         self.cam_pos = list(pos)
@@ -313,15 +360,20 @@ class RaytraceRenderer:
         _, out = self.render_many(1)
         return out
 
-    def render_many(self, n: int, poses=None, rgb: bool = False):
+    def render_many(self, n: int, poses=None, rgb: bool = False,
+                    times=None, scene_fn=None):
         """Render ``n`` frames; ``poses``: optional [(pos, yaw, pitch)] per
         frame. Returns ((fg_u8, bg_u8[, top_u8, bot_u8]) stacked
-        (n, fb_h, fb_w[, 3]), the last frame's FrameOutput)."""
+        (n, fb_h, fb_w[, 3]), the last frame's FrameOutput).
+        ``times`` + ``scene_fn`` render a scene that changes per frame:
+        frame k is ``scene_fn(times[k])`` (e.g. ``DynamicScene.at_time``;
+        the renderer's scene must be set with ``static=False``)."""
         self._update_video_textures()
         if poses is None:
             poses = [(self.cam_pos, self.yaw, self.pitch)] * n
         cams = stack_poses(poses, self.fov_deg, self.device)
+        ts = None if times is None else [float(t) for t in times]
         grids, out, self.state = frame_scan(
             self.packed, cams, self.state, self.fb_w, self.fb_h, self.ss,
-            self.cfg, self.impl, stack_rgb=rgb)
+            self.cfg, self.impl, stack_rgb=rgb, scene_fn=scene_fn, ts=ts)
         return grids, out

@@ -1,18 +1,35 @@
-"""The static showcase scene: the museum.
+"""The two large composite scenes and the dynamic showcase scenes.
 
-Port of ``build_museum`` of
-``yetanotherconsolegameengine_tpu/scene/showcase_scenes.py``: a checker
-hall with three Cornell-style rooms, a mesh gallery on pedestals (three
-small meshes in one 2,636-triangle LBVH) and glass. The dynamic showcase
-scenes (``exhibit_ring``, ``spinning_mesh``) need the entity system, which
-is not ported (ROADMAP.md Queue 1 item 12).
+Port of ``yetanotherconsolegameengine_tpu/scene/showcase_scenes.py``, in
+numpy and torch:
+
+- ``build_museum``: a checker hall with three Cornell-style rooms, a mesh
+  gallery on pedestals (three small meshes in one 2,636-triangle LBVH)
+  and glass.
+- ``build_exhibit_ring``: a seeded radial ring of themed vignettes around
+  a central refractive hero mesh, with the C# original's dynamic entities
+  (bobbing sphere, orbiting and pulsing lights) patching the sphere and
+  light tables per frame (scene/entities.py).
+- ``build_spinning_mesh``: a 3,840-triangle torus knot spinning about Y,
+  its LBVH rebuilt on its device every frame.
+
+The dynamic builders return a ``DynamicScene`` on the CPU; move it with
+``DynamicScene.to(device)``.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
+import torch
+
+from .entities import (BobbingSphereEntity, DynamicScene,
+                       OrbitingLightEntity, PulsingLightEntity,
+                       SpinningMeshEntity)
 from .materials import Material
 from .mesh_loader import (find_asset, load_obj, make_gem, make_icosphere,
-                          make_torus, transform_mesh)
+                          make_knot, make_torus, transform_mesh)
 from .mesh_scenes import SWATCH, _auto_ground
 from .tables import SceneBuilder, SceneData
 
@@ -75,4 +92,124 @@ def build_museum() -> SceneData:
     return s.build()
 
 
-SHOWCASE_SCENE_BUILDERS = {"museum": build_museum}
+def _hsv(h, sv, v):
+    i = int(h * 6.0) % 6
+    f = h * 6.0 - int(h * 6.0)
+    p = v * (1 - sv)
+    q = v * (1 - f * sv)
+    t = v * (1 - (1 - f) * sv)
+    return [(v, t, p), (q, v, p), (p, v, t), (p, q, v), (t, p, v),
+            (v, p, q)][i]
+
+
+def build_exhibit_ring(seed: int = 1337) -> DynamicScene:
+    """Seeded 'exhibit ring' with dynamic entities (TestScenesRandom.Build).
+
+    Returns a DynamicScene: per-frame entity updates patch the light and
+    sphere tables (no rebuilds; it renders through the wavefront)."""
+    rng = np.random.RandomState(seed)
+    s = SceneBuilder("exhibit_ring")
+    s.ambient_color, s.ambient_intensity = (1, 1, 1), 0.03
+    s.add_plane((0, 0, 0), (0, 1, 0),
+                Material.checker((0.75, 0.75, 0.78), (0.18, 0.18, 0.2), 0.8))
+
+    # Central refractive hero (the dragon slot; gem stand-in / real OBJ).
+    path = find_asset("xyzrgb_dragon.obj")
+    if path is not None:
+        tris = load_obj(path, scale=2.4, translate=(0.0, 0.0, 0.0))
+    else:
+        tris = transform_mesh(make_gem(sides=8), scale=2.0,
+                              translate=(0.0, 0.0, 0.0))
+    s.add_mesh_triangles(_auto_ground(tris), Material.glass(ior=1.45))
+
+    # Bobbing sphere vignette: reserve sphere index 0.
+    bob_base = (3.5, 1.0, 0.0)
+    s.add_sphere(bob_base, 0.6,
+                 Material.solid((0.9, 0.4, 0.2), specular=0.3))
+
+    # 12 themed vignettes on the ring (TestScenesRandom.cs:120-700).
+    R = 7.0
+    for k in range(12):
+        # Half-step offset so no vignette sits on the camera axis and the
+        # central hero stays visible (TestScenesRandom centers the dragon).
+        ang = (k + 0.5) * 2.0 * math.pi / 12.0
+        cx, cz = R * math.cos(ang), R * math.sin(ang)
+        theme = k % 6
+        rgb = _hsv(rng.rand(), 0.6 + 0.4 * rng.rand(), 0.6 + 0.4 * rng.rand())
+        if theme == 0:
+            refl = float(rng.rand() < 0.3) * 0.6
+            s.add_sphere((cx, 0.7, cz), 0.7,
+                         Material.solid(rgb, specular=0.3, reflectivity=refl))
+        elif theme == 1:
+            s.add_box((cx - 0.5, 0.0, cz - 0.5), (cx + 0.5, 1.2, cz + 0.5),
+                      Material.solid(rgb, specular=0.2))
+        elif theme == 2:
+            s.add_cylinder((cx, 0.0, cz), 0.5, 0.0, 1.4, True,
+                           Material.solid(rgb, specular=0.25))
+        elif theme == 3:
+            s.add_sphere((cx, 0.8, cz), 0.8, Material.glass(
+                transmission=tuple(min(1.0, c + 0.4) for c in rgb)))
+        elif theme == 4:
+            s.add_sphere((cx, 0.6, cz), 0.6,
+                         Material.solid((0.95, 0.95, 0.95), reflectivity=0.92))
+        else:
+            s.add_sphere((cx, 1.8, cz), 0.35,
+                         Material.emissive(tuple(3.0 * c for c in rgb)))
+
+    # Lights: key (pulsing, index 0), orbiter (index 1), fill.
+    s.add_light((0.0, 9.0, 4.0), (1.0, 0.96, 0.9), 240.0)
+    s.add_light((4.0, 3.0, 0.0), (0.9, 0.6, 1.0), 60.0)
+    s.add_light((-6.0, 5.0, -6.0), (0.8, 0.9, 1.0), 80.0)
+    s.bg_top = (0.45, 0.65, 0.95)
+    s.bg_bottom = (0.9, 0.94, 1.0)
+    s.set_camera((0.0, 2.6, 11.0), pitch=-0.15, fov=62.0)
+
+    base = s.build()
+    entities = [
+        BobbingSphereEntity(index=0, base_center=bob_base, amplitude=0.5,
+                            freq_hz=0.4),
+        OrbitingLightEntity(index=1, pivot=(0.0, 0.0, 0.0), radius=4.5,
+                            height=3.0, period_s=7.0),
+        PulsingLightEntity(index=0, base_intensity=240.0, depth=0.35,
+                           freq_hz=0.6),
+    ]
+    return DynamicScene(base, entities)
+
+
+def build_spinning_mesh() -> DynamicScene:
+    """Dynamic-mesh scene: a torus knot spinning about Y whose LBVH is
+    rebuilt on its device every frame (scene/entities.SpinningMeshEntity
+    -> ops/lbvh.build_lbvh), the C# original's Scene.RebuildBVH over
+    changed geometry (Scenes/Scene.cs:66-69, 122-127)."""
+    s = SceneBuilder("spinning_mesh")
+    s.ambient_color, s.ambient_intensity = (1, 1, 1), 0.05
+    s.add_xz_rect(-10.0, 10.0, -10.0, 5.0, 0.0,
+                  Material.checker((0.8, 0.8, 0.85), (0.18, 0.18, 0.2),
+                                   0.8, specular=0.05))
+    s.add_light((3.0, 5.0, 2.5), (1.0, 0.96, 0.9), 110.0)
+    s.bg_top = (0.5, 0.7, 1.0)
+    s.bg_bottom = (0.92, 0.96, 1.0)
+    tris = transform_mesh(make_knot(), normalize=True, scale=1.9,
+                          translate=(0.0, 0.0, -3.2))
+    tris = _auto_ground(tris, floor_y=0.35)
+    s.add_mesh_triangles(tris, SWATCH["copper"])
+    mid = s._mesh_tris[-1][1]
+    s.set_camera((0.0, 1.8, 1.2), pitch=-0.12, fov=60.0)
+    base = s.build()
+
+    cx, cz = float(tris[:, :, 0].mean()), float(tris[:, :, 2].mean())
+    T = tris.shape[0]
+    vert = lambda k: torch.from_numpy(np.ascontiguousarray(tris[:, k],
+                                                           np.float32))
+    ent = SpinningMeshEntity(
+        a0=vert(0), b0=vert(1), c0=vert(2),
+        mat=torch.full((T,), mid, dtype=torch.int32),
+        pivot=(cx, 0.0, cz), spin_hz=0.12)
+    return DynamicScene(base, [ent])
+
+
+SHOWCASE_SCENE_BUILDERS = {
+    "museum": build_museum,
+    "exhibit_ring": build_exhibit_ring,
+    "spinning_mesh": build_spinning_mesh,
+}
