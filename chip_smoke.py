@@ -84,6 +84,22 @@ Phases (one line each; any failure raises and exits non-zero):
  22. the video mode's frame on the card vs the CPU (RGB within 1e-5, ANSI
      equal); the SCNE snapshot of Cornell on the card byte-equal to the
      CPU's; a replica read onto the card renders as the original
+ 23. multi-device row sharding (``parallel/sharding.py``), the ranks
+     sharing the one card over gloo with the exchange staged through pinned
+     host memory: (a) K2 on the bands of 2 and 4 ranks of Cornell 160x180
+     bit-equal to those rows of the full-frame K2, and K1's band mode
+     (launch A on each extended band, launch B on the combined partial)
+     against ``post_plain``'s band mode within phase 4's contract, tail on
+     and off, with each launch's device time; (b) ``dryrun(4)``; (c) the
+     sharded frames against the unsharded frame on the card: Cornell 160x90
+     on 2 ranks and 160x88 on 2 and 4 (90 cell rows do not split into 4
+     whole-cell bands; top within 2e-5, fg equal), the dragon on 2 ranks
+     at 240x136 (nor 135 into 2; built on rank 0 and broadcast; top within
+     2e-5, fg flips under 0.5%), and cluster_forced, voxel_test, its DDA form and the teapot at
+     48x28 on 4 ranks (14-row bands, halos over several owners), every
+     rank's launch counts; (d) Cornell 160x88 ms/frame by CUDA events at 1,
+     2 and 4 ranks on the one card (the cost of the exchange and the split
+     post where ranks share a card, not a scale-out figure)
 Then a JSON line of per-kernel results (``ms`` is the device time,
 ``event_ms`` the CUDA-event time; ``launches`` counts Cornell's timed run for
 K1 and K2 and the dragon's for K3, ``launches_by_path`` every timed run and
@@ -141,17 +157,28 @@ DEMO_FRAMES = 100
 VOXEL_FRAMES = 100              # voxel_test 160x90 through K2
 VOXEL_DDA_FRAMES = 10           # its DDA form, the torch DDA
 ORBIT_POSES = 64                # bench_suite's island orbit
+SHARD_FRAMES = 4                # frames of each sharded contract run
+SHARD_TIMED = 100               # timed sharded Cornell 160x90 frames
+SHARD_DRAGON_TIMED = 5
+# Bands are whole cells of equal height (fb_h and 2 * fb_h must divide by
+# the world, as in the JAX package): 135 cell rows do not split into 2
+# bands nor 90 into 4, so the 2-rank dragon renders 240x136 and Cornell on
+# 4 ranks, and the timed Cornell frames at 1, 2 and 4 ranks, 160x88.
+SHARD_DRAGON_H = 136
+SHARD_FB_H = 88
 DDA_ISLAND_FRAMES = 6           # the forced-DDA island
 DYNAMIC_TIMES = (0.0, 1.3, 2.0)
 SPIN_FRAMES = 4                 # bench_suite's "Spinning mesh" row, 160x90
 RING_FRAMES = 10
 SHELL_TICKS = 60                # the terminal program's frames
 # fp32 operations per K2 ray-primitive test (a slab test: 6 sub, 6 mul,
-# 12 min/max) and per K1 pixel (TAA 3x3 clamp ~100; three 5x5 a-trous
-# passes of 25 taps x ~30; exposure and tail ~60). Least times follow
+# 12 min/max) and per K1 pixel and stage: the TAA 3x3 clamp ~100, a 5x5
+# a-trous pass of 25 taps x ~30, the exposure sample's luma and log ~10,
+# the tail (ACES, gamma, saturation, ANSI-256) ~50. Least times follow
 # tools/profile_frame.py::roofline (K3's work: k3_work there).
 K2_OPS = 24
-K1_OPS = 2410
+K1_TAA_OPS, K1_PASS_OPS, K1_LOG_OPS, K1_TAIL_OPS = 100, 750, 10, 50
+K1_OPS = K1_TAA_OPS + 3 * K1_PASS_OPS + K1_LOG_OPS + K1_TAIL_OPS
 # 4-byte planes K1 must read and write once per pixel: of the G-buffer the
 # 11 it reads (radiance 3, sky, albedo 3, normal 3, depth; not the ray
 # count), of the previous frame's depth, normal and sky (5), the history's
@@ -769,6 +796,267 @@ def video_sync_phase(dev, card) -> None:
           f"equal over 4 frames", flush=True)
 
 
+def check_launched(counts: dict, keys, what: str) -> None:
+    """Each kernel of ``keys`` launched at least once in ``counts``."""
+    for k in keys:
+        assert counts[k] > 0, f"{what}: kernel {k} was not launched"
+
+
+def frame_diff(got: dict, want) -> dict:
+    """A gathered sharded frame against the unsharded one: the largest
+    top/bottom difference, the share of cells over 2e-5, fg ANSI flips and
+    both ray counts."""
+    off = np.maximum(np.abs(got["top_rgb"] - _np(want.top_rgb)).max(-1),
+                     np.abs(got["bot_rgb"] - _np(want.bot_rgb)).max(-1))
+    return {"rgb": float(off.max()), "cells_over": float((off > 2e-5).mean()),
+            "fg_flips": float((got["fg_ansi"] != _np(want.fg_ansi)).mean()),
+            "rays": [int(got["rays_traced"]), int(want.rays_traced)]}
+
+
+def check_same_frame(d: dict, fg_equal: bool, what: str) -> None:
+    """The JAX package's sharding contract (tests/test_pipeline.py:91-168)
+    on ``frame_diff``'s numbers: top and bottom within 2e-5, fg ANSI equal
+    (``fg_equal``) or under 0.5% flips, equal rays_traced."""
+    assert d["rgb"] <= 2e-5, f"{what}: sharded top/bot differ by {d['rgb']}"
+    assert d["fg_flips"] == 0.0 if fg_equal else d["fg_flips"] < 0.005, \
+        f"{what}: fg flips {d['fg_flips']}"
+    assert d["rays"][0] == d["rays"][1], f"{what}: rays {d['rays']}"
+
+
+def unsharded(scene, w: int, h: int, dev, frames: int = SHARD_FRAMES,
+              ss: int = 1):
+    """The unsharded frame on the card (kernels) after ``frames`` frames."""
+    r = RaytraceRenderer(scene, w, h, ss=ss, device=dev)
+    out = None
+    for _ in range(frames):
+        out = r.render()
+    return out
+
+
+def band_post_err(inputs, bands, halo: int, cfg, fuse_tail: bool):
+    """K1 band mode on ``bands`` of a frame's post ``inputs``: launch A on
+    each extended band, the partials combined, launch B on each band,
+    against ``post_band_plain`` and ``post_band_tail_plain`` on the same
+    inputs, the bands' rows concatenated and held to phase 4's contract.
+    Returns (the errors and the combined partial sums' difference, the
+    kernels' combined partial)."""
+    cur, prev, hist, valid, reset, ae = inputs
+    h = cur.shape[1]
+    outs = []
+    for y0, y1 in bands:
+        e0, e1 = max(0, y0 - halo), min(h, y1 + halo)
+        ext = [x[:, e0:e1].contiguous() for x in (cur, prev, hist)]
+        own = (y0 - e0, y1 - e0)
+        outs.append((post_kernel.post_band(*ext, valid, reset, cfg, 2, e0,
+                                           own),
+                     post_kernel.post_band_plain(*ext, valid, reset, cfg, 2,
+                                                 e0, own)))
+    total = post_kernel.combine_partials(torch.stack([k[2] for k, _ in outs]))
+    want_total = post_kernel.combine_partials(torch.stack(
+        [p[2] for _, p in outs]))
+    assert float(total[1]) == float(want_total[1]), "sample counts"
+    tails = [(post_kernel.post_band_tail(k[1], total, ae, cfg, fuse_tail),
+              post_kernel.post_band_tail_plain(p[1], want_total, ae, cfg,
+                                               fuse_tail))
+             for k, p in outs]
+    torch.cuda.synchronize()
+
+    def cat(xs):
+        return None if xs[0] is None else np.concatenate(
+            [_np(x) for x in xs], axis=-2)
+    err = post_contract(
+        [cat([k[0] for k, _ in outs]), cat([t[0] for t, _ in tails]),
+         cat([t[1] for t, _ in tails]), _np(tails[0][0][2])],
+        [cat([p[0] for _, p in outs]), cat([t[0] for _, t in tails]),
+         cat([t[1] for _, t in tails]), _np(tails[0][1][2])])
+    err["partial_sum"] = abs(float(total[0]) - float(want_total[0]))
+    return err, total
+
+
+def sharding_phases(dev, card, packs, post_in, dragon, cfg) -> dict:
+    """Phase 23: row bands of the frame over ranks that share the card
+    (gloo, host-staged exchange). Returns what the kernels line reports:
+    the band launches' times and launches by sharded path."""
+    import functools
+
+    from yetanotherconsolegameengine_tpu_torch.parallel import sharding
+    from yetanotherconsolegameengine_tpu_torch.scene.voxel_scenes import (
+        build_voxel_test_scene)
+    how = "ranks sharing the one card over gloo, exchange staged through " \
+          "pinned host memory"
+
+    # (a) band kernels against the full frame and their plain versions, on
+    # the bands of the traced shapes the sharded frames below run (Cornell
+    # 160x180 on 2 ranks, cornell88's 160x176 on 2 and 4, the dragon's
+    # 240x272 on 2) and on Cornell 160x180's 4 bands.
+    packed = packs["cornell"]
+    halo = post_kernel.halo_rows(cfg)
+    band_shapes = ((HI_W, HI_H, (2, 4)), (FB_W, SHARD_FB_H * 2, (2, 4)),
+                   (DRAGON_W, SHARD_DRAGON_H * 2, (2,)))
+    band_err, k2_bands, totals = {}, {}, {}
+    for w, h, worlds in band_shapes:
+        params, frames = trace_inputs(packed.scene, w, h, TRACE_FRAME, dev)
+        full = trace_kernel.trace_planes(packed, params, frames, 0, w, h, cfg)
+        if (w, h) not in post_in:
+            post_in[w, h] = post_inputs(packed, w, h, dev, cfg)
+        for n in worlds:
+            bands = [(r * h // n, (r + 1) * h // n) for r in range(n)]
+            for rows in bands:
+                got = trace_kernel.trace_planes(packed, params, frames, 0, w,
+                                                h, cfg, rows)
+                torch.cuda.synchronize()
+                assert torch.equal(got, full[:, rows[0]:rows[1]]), \
+                    f"K2 band {rows} of {w}x{h}"
+            k2_bands[f"{w}x{h}"] = k2_bands.get(f"{w}x{h}", []) + bands
+            for fuse_tail in (True, False):
+                band_err[f"{w}x{h} {n} bands fuse_tail={fuse_tail}"], \
+                    totals[w, h, n] = band_post_err(post_in[w, h], bands,
+                                                    halo, cfg, fuse_tail)
+    cur, prev, hist, valid, reset, ae = post_in[HI_W, HI_H]
+    params, frames = trace_inputs(packed.scene, HI_W, HI_H, TRACE_FRAME, dev)
+    bands = [(r * HI_H // 4, (r + 1) * HI_H // 4) for r in range(4)]
+    total = totals[HI_W, HI_H, 4]
+    # Each launch's device time on the middle band of 4 (45 owned rows, 75
+    # rows with the halo), beside the whole frame's one launch (phase 6c).
+    y0, y1 = bands[1]
+    e0, e1 = y0 - halo, y1 + halo
+    ext = [x[:, e0:e1].contiguous() for x in (cur, prev, hist)]
+    a_out = post_kernel.post_band(*ext, valid, reset, cfg, 2, e0,
+                                  (y0 - e0, y1 - e0))
+    ms_a = kernel_ms(lambda: post_kernel.post_band(
+        *ext, valid, reset, cfg, 2, e0, (y0 - e0, y1 - e0)), 100)
+    ms_b = kernel_ms(lambda: post_kernel.post_band_tail(
+        a_out[1], total, ae, cfg, True), 100)
+    k2_band = trace_kernel.trace_planes(packed, params, frames, 0, HI_W,
+                                        HI_H, cfg, (y0, y1))
+    k2_band_ms = kernel_ms(lambda: trace_kernel.trace_planes(
+        packed, params, frames, 0, HI_W, HI_H, cfg, (y0, y1)), 100)
+    # Least times as in phase 6c. Launch A does the TAA and every a-trous
+    # pass but the last over the extended band, and the last pass and the
+    # exposure sample over the owned rows; it reads K1's input planes of
+    # the extended band and writes blended and denoised RGB of the owned
+    # rows. Launch B runs the tail on the owned rows: it reads 3 planes and
+    # writes 3 and the ANSI plane.
+    n_prims = sum(int(getattr(packed.scene, name).mask.sum())
+                  for name, _ in INTERSECTORS)
+    ext_px, own_px = (e1 - e0) * HI_W, (y1 - y0) * HI_W
+    timing = {"k1_band_a_ms": ms_a, "k1_band_b_ms": ms_b,
+              "k2_band_ms": k2_band_ms, "band_rows": y1 - y0,
+              "extended_rows": e1 - e0,
+              "k1_band_a_bound_ms": roofline(
+                  ext_px * (K1_TAA_OPS + (cfg.atrous_iterations - 1)
+                            * K1_PASS_OPS)
+                  + own_px * (K1_PASS_OPS + K1_LOG_OPS),
+                  (K1_PLANES - 7) * ext_px * 4 + 6 * own_px * 4)[0],
+              "k1_band_b_bound_ms": roofline(own_px * K1_TAIL_OPS,
+                                             7 * own_px * 4)[0],
+              "k2_band_bound_ms": roofline(
+                  int(k2_band[11].sum()) * n_prims * K2_OPS,
+                  packed.table.numel() * 4 + k2_band.numel() * 4)[0]}
+    print(f"phase 23a {card} band kernels: K2 on the bands "
+          f"{json.dumps(k2_bands)} bit-equal to the full frame's rows; K1 "
+          f"band mode (launch A + B over each shape's bands, halo {halo}) vs "
+          f"its plain version: {json.dumps(band_err)}; device time on a "
+          f"{y1 - y0}-row band of {HI_W}x{HI_H} "
+          f"band ({e1 - e0} rows with the halo): {json.dumps(timing)}",
+          flush=True)
+
+    # (b) the dryrun.
+    t0 = time.perf_counter()
+    dry = sharding.dryrun(4, device="cuda", backend="gloo")
+    dry_launches = {name: [list(r["launches"][name].values()) for r in dry]
+                    for name in dry[0]["launches"]}
+    print(f"phase 23b {card} dryrun(4), {how}: scenes "
+          f"{sorted(dry[0]['frames'])} "
+          f"finite at 32x8 cells on every rank; launches (trace, post, "
+          f"clusters) of each rank {json.dumps(dry_launches)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (c) the sharded frames against the unsharded frame.
+    cornell = SCENE_BUILDERS["cornell"]
+    timed = sharding.FrameJob("cornell88", cornell, FB_W, SHARD_FB_H,
+                              SHARD_FRAMES, timed=SHARD_TIMED)
+    jobs2 = [sharding.FrameJob("cornell", cornell, FB_W, FB_H, SHARD_FRAMES),
+             sharding.FrameJob("cornell_ss2", cornell, FB_W, FB_H,
+                               SHARD_FRAMES, ss=2),
+             timed,
+             sharding.FrameJob("dragon", SCENE_BUILDERS["dragon"], DRAGON_W,
+                               SHARD_DRAGON_H, SHARD_FRAMES,
+                               timed=SHARD_DRAGON_TIMED)]
+    small = {"cluster_forced": FORCED_SCENE_BUILDERS["cluster_forced"],
+             "voxel_test": SCENE_BUILDERS["voxel_test"],
+             "voxel_test_dda": functools.partial(build_voxel_test_scene,
+                                                 merge="dda"),
+             "teapot": SCENE_BUILDERS["teapot"]}
+    jobs4 = [timed] + [sharding.FrameJob(k, b, 48, 28, SHARD_FRAMES)
+                       for k, b in small.items()]
+    t0 = time.perf_counter()
+    res2 = sharding.spawn(2, sharding.frames_job, jobs2, device="cuda",
+                          backend="gloo")
+    s2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res4 = sharding.spawn(4, sharding.frames_job, jobs4, device="cuda",
+                          backend="gloo")
+    s4 = time.perf_counter() - t0
+    want = {"cornell": unsharded(cornell(), FB_W, FB_H, dev),
+            "cornell_ss2": unsharded(cornell(), FB_W, FB_H, dev, ss=2),
+            "cornell88": unsharded(cornell(), FB_W, SHARD_FB_H, dev),
+            "dragon": unsharded(dragon, DRAGON_W, SHARD_DRAGON_H, dev),
+            **{k: unsharded(b(), 48, 28, dev) for k, b in small.items()}}
+    need = {"cornell": ("trace", "post"), "cornell_ss2": ("trace", "post"),
+            "cornell88": ("trace", "post"),
+            "dragon": ("clusters", "post"),
+            "cluster_forced": ("clusters", "post"),
+            "voxel_test": ("trace", "post"), "voxel_test_dda": ("post",),
+            "teapot": ("post",)}
+    contract, launches = {}, {}
+    for n, res in ((2, res2), (4, res4)):
+        for name in res[0]["frames"]:
+            contract[f"{name} {n} ranks"] = frame_diff(
+                res[0]["frames"][name], want[name])
+            launches[f"sharded_{name}_{n}ranks"] = [r["launches"][name]
+                                                    for r in res]
+    print(f"phase 23c {card} sharded frames vs the unsharded frame on the "
+          f"card ({how}; Cornell {FB_W}x{FB_H} ss=1 and ss=2 on 2 ranks and "
+          f"{FB_W}x"
+          f"{SHARD_FB_H} (cornell88) on 2 and 4, dragon {DRAGON_W}x"
+          f"{SHARD_DRAGON_H}, the rest 48x28; {SHARD_FRAMES} frames; spawns of 2 "
+          f"and 4 ranks {s2:.1f} s and {s4:.1f} s): {json.dumps(contract)}; "
+          f"launches (trace, post, clusters) of each rank "
+          f"{json.dumps({k: [list(c.values()) for c in v] for k, v in launches.items()})}",
+          flush=True)
+    for (what, d), (key, per_rank) in zip(contract.items(), launches.items()):
+        name = what.split()[0]
+        check_same_frame(d, name.startswith("cornell"), what)
+        for r, counts in enumerate(per_rank):
+            check_launched(counts, need[name], f"{key} rank {r}")
+
+    # (d) ms/frame at 1, 2 and 4 ranks.
+    with tempfile.TemporaryDirectory() as tmp:
+        group = sharding.make_group(0, 1, torch.distributed.FileStore(
+            os.path.join(tmp, "store"), 1), "gloo", "cuda")
+        try:
+            res1 = sharding.frames_job(group, [timed])
+        finally:
+            torch.distributed.destroy_process_group()
+    per_rank = {1: [res1["ms"]["cornell88"]],
+                2: [r["ms"]["cornell88"] for r in res2],
+                4: [r["ms"]["cornell88"] for r in res4]}
+    dragon_ms = [r["ms"]["dragon"] for r in res2]
+    print(f"phase 23d {card} Cornell {FB_W}x{SHARD_FB_H} ss=1 ms/frame by each "
+          f"rank's CUDA events over {SHARD_TIMED} sharded frames, {how} (the "
+          f"cost of the exchange and the split post where ranks share a "
+          f"card; not a scale-out figure): "
+          f"{json.dumps({f'{n} ranks': max(v) for n, v in per_rank.items()})}"
+          f" (per rank {json.dumps(per_rank)}); dragon {DRAGON_W}x"
+          f"{SHARD_DRAGON_H} "
+          f"on 2 ranks over {SHARD_DRAGON_TIMED} frames: {max(dragon_ms):.3f} "
+          f"ms/frame", flush=True)
+    return {"timing": timing, "launches": launches,
+            "ms": {n: max(v) for n, v in per_rank.items()},
+            "dragon_ms": max(dragon_ms)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
@@ -1230,6 +1518,16 @@ def main() -> int:
     dyn_runs = dynamic_phases(dev, card)
     shell = shell_phases(dev, card)
     video_sync_phase(dev, card)
+
+    # ---- 23. multi-device row sharding -------------------------------------
+    shard = sharding_phases(dev, card, packs, post_in, dragon, cfg)
+
+    def sharded(kernel):
+        """Launches of ``kernel`` summed over the ranks of each sharded
+        path that takes it."""
+        sums = {k: sum(r[kernel] for r in v)
+                for k, v in shard["launches"].items()}
+        return {k: n for k, n in sums.items() if n}
     shell_launches = {
         "shell_cornell": shell["shell"][1]["launches"],
         "shell_cornell_batch8": shell["shell"][8]["launches"],
@@ -1251,7 +1549,10 @@ def main() -> int:
                               "demo_random": demo_run["launches"]["trace"],
                               "voxel_test": room_run["launches"]["trace"],
                               **{k: v["trace"]
-                                 for k, v in shell_launches.items()}},
+                                 for k, v in shell_launches.items()},
+                              **sharded("trace")},
+         "band_ms": shard["timing"]["k2_band_ms"],
+         "band_bound_ms": shard["timing"]["k2_band_bound_ms"],
          "demo_random": {"ms": demo_k2, "plain_ms": demo_k2p,
                          "bound_ms": demo_bound[0],
                          "bound_by": demo_bound[1]}},
@@ -1276,7 +1577,15 @@ def main() -> int:
                               **{k: v["launches"]["post"]
                                  for k, v in dyn_runs.items()},
                               **{k: v["post"]
-                                 for k, v in shell_launches.items()}}},
+                                 for k, v in shell_launches.items()},
+                              **sharded("post")},
+         "band": {"a_ms": shard["timing"]["k1_band_a_ms"],
+                  "b_ms": shard["timing"]["k1_band_b_ms"],
+                  "a_bound_ms": shard["timing"]["k1_band_a_bound_ms"],
+                  "b_bound_ms": shard["timing"]["k1_band_b_bound_ms"],
+                  "rows": shard["timing"]["band_rows"],
+                  "extended_rows": shard["timing"]["extended_rows"]},
+         "sharded_cornell_ms_per_frame": shard["ms"]},
         {"name": "clusters", "route": "cuda",
          "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
                    "cluster_kernel.cu",
@@ -1291,7 +1600,8 @@ def main() -> int:
                               **{f"island_{k}": v["launches"]["clusters"]
                                  for k, v in orbit.items()},
                               **{k: v["clusters"]
-                                 for k, v in shell_launches.items()}}},
+                                 for k, v in shell_launches.items()},
+                              **sharded("clusters")}},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

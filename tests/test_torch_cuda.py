@@ -537,3 +537,85 @@ def test_program_headless_on_the_card(dev):
         assert b"fps" in data
         assert kernels.LAUNCHES["trace"] > 0 and kernels.LAUNCHES["post"] > 0
     assert native.load() is not None
+
+
+# ---- row bands (parallel/sharding.py) -----------------------------------
+@pytest.mark.parametrize("name", ["cornell", "glass"])
+def test_trace_kernel_band_is_bit_equal_to_the_full_frame(dev, name):
+    """K2 on the bands of 2 and 4 ranks, and on an odd band, is those rows
+    of the full-frame K2 bit for bit."""
+    packed = trace_kernel.pack_scene(SCENE_BUILDERS[name]().to(dev))
+    params = ray_params(packed.scene.default_pose, W, H, 3)[None]
+    frames = torch.tensor([3], dtype=torch.int32, device=dev)
+    full = trace_kernel.trace_planes(packed, params.contiguous(), frames, 0,
+                                     W, H, DEFAULT_CONFIG)
+    bands = [(r * H // n, (r + 1) * H // n) for n in (2, 4) for r in range(n)]
+    for rows in bands + [(5, 17)]:
+        band = trace_kernel.trace_planes(packed, params.contiguous(), frames,
+                                         0, W, H, DEFAULT_CONFIG, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(band, full[:, rows[0]:rows[1]]), rows
+
+
+@pytest.mark.parametrize("fuse_tail,step", [(True, 2), (False, 4)])
+@pytest.mark.parametrize("world", [2, 6])
+def test_post_band_kernel_matches_plain_band(dev, world, fuse_tail, step):
+    """K1's band mode, launch A on each extended band and launch B on the
+    combined partial, against the plain band mode within the post
+    contract; two launches a band."""
+    w, h = 70, 60
+    cur, prev, hist = (torch.from_numpy(a).to(dev)
+                       for a in _post_planes(w, h, world))
+    cfg = DEFAULT_CONFIG
+    halo = post_kernel.halo_rows(cfg)
+    flags = (torch.ones((), dtype=torch.bool, device=dev),
+             torch.zeros((), dtype=torch.bool, device=dev))
+    ae = torch.full((), 0.8, device=dev)
+    band_h = h // world
+    got, ref = [], []
+    before = kernels.LAUNCHES["post"]
+    for r in range(world):
+        y0, y1 = r * band_h, (r + 1) * band_h
+        e0, e1 = max(0, y0 - halo), min(h, y1 + halo)
+        ext = [x[:, e0:e1].contiguous() for x in (cur, prev, hist)]
+        got.append(post_kernel.post_band(*ext, *flags, cfg, step, e0,
+                                         (y0 - e0, y1 - e0)))
+        ref.append(post_kernel.post_band_plain(*ext, *flags, cfg, step, e0,
+                                               (y0 - e0, y1 - e0)))
+    total = post_kernel.combine_partials(torch.stack([g[2] for g in got]))
+    want_total = post_kernel.combine_partials(torch.stack([x[2] for x in ref]))
+    assert float(total[1]) == float(want_total[1])
+    assert abs(float(total[0]) - float(want_total[0])) <= 1e-3
+    tails = [post_kernel.post_band_tail(g[1], total, ae, cfg, fuse_tail)
+             for g in got]
+    want_tails = [post_kernel.post_band_tail_plain(x[1], total, ae, cfg,
+                                                   fuse_tail) for x in ref]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["post"] == before + 2 * world
+    cat = lambda xs, k: (None if xs[0][k] is None else
+                         torch.cat([x[k] for x in xs], dim=-2).cpu().numpy())
+    post_contract([cat(got, 0), cat(tails, 0), cat(tails, 1),
+                   tails[0][2].cpu().numpy()],
+                  [cat(ref, 0), cat(want_tails, 0), cat(want_tails, 1),
+                   want_tails[0][2].cpu().numpy()])
+    assert all(float(t[2]) == float(tails[0][2]) for t in tails)
+
+
+def test_sharded_frames_on_the_card_match_the_unsharded_frame(dev):
+    """Two ranks sharing the card over gloo (host-staged exchange), Cornell
+    at 48x28, 4 frames, against the kernel renderer: top within 2e-5, fg
+    equal; each rank launched K2 and K1."""
+    from yetanotherconsolegameengine_tpu_torch.parallel import sharding
+    res = sharding.spawn(2, sharding.frames_job, [sharding.FrameJob(
+        "cornell", SCENE_BUILDERS["cornell"], 48, 28, n_frames=4)],
+        device="cuda", backend="gloo")
+    r = RaytraceRenderer(SCENE_BUILDERS["cornell"](), 48, 28, device=dev)
+    for _ in range(4):
+        out = r.render()
+    got = res[0]["frames"]["cornell"]
+    np.testing.assert_allclose(got["top_rgb"], out.top_rgb.cpu().numpy(),
+                               atol=2e-5)
+    np.testing.assert_array_equal(got["fg_ansi"], out.fg_ansi.cpu().numpy())
+    for rank in res:
+        assert rank["launches"]["cornell"]["trace"] == 4
+        assert rank["launches"]["cornell"]["post"] == 8

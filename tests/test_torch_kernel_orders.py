@@ -4,7 +4,9 @@ models of what ``ops/csrc/post_kernel.cu`` does, and the trace kernel's
 
 K1: the output tiles cover every pixel once and each staging window holds
 every tap of its tile; the exposure is a fixed-order sum of per-tile
-partials, which must stay within 1e-5 of ``tonemap.update_exposure``."""
+partials, which must stay within 1e-5 of ``tonemap.update_exposure``; a
+row band's launch A partial covers its owned rows on the whole frame's
+sample grid, as ``tonemap.exposure_partials`` does."""
 
 import dataclasses
 
@@ -80,21 +82,24 @@ def tree_sum(v: np.ndarray) -> np.ndarray:
     return v[..., 0]
 
 
-def kernel_exposure(denoised, sky, ae, cfg, sample_step):
-    """The kernel's exposure: per tile, thread t = ly * TILE_W + lx holds
-    log(1e-6 + luma) of its pixel where that is a sample point, not sky,
-    with luma > 0 (else 0), tree-summed; the total: thread t sums tiles t,
-    t + 256, ... in order, then a tree; then the EMA of tonemap."""
+def kernel_partial(denoised, sky, sample_step, y_base=0, own=None):
+    """The kernel's (log-luma sum, count) over an (h, w) launch: per tile,
+    thread t = ly * TILE_W + lx holds log(1e-6 + luma) of its pixel where
+    that is an owned pixel (rows ``own``, all by default) on the sample
+    grid of global rows (row y is global row y_base + y), not sky, with
+    luma > 0 (else 0), tree-summed; the total: thread t sums tiles t,
+    t + 256, ... in order, then a tree."""
     h, w = sky.shape
+    o0, o1 = (0, h) if own is None else own
     ny, nx = post_kernel.tiles(h, w)
     th, tw = post_kernel.TILE_H, post_kernel.TILE_W
     threads = th * tw
     ys, xs = np.mgrid[0:ny * th, 0:nx * tw]
-    inside = (ys < h) & (xs < w)
+    inside = (ys >= o0) & (ys < o1) & (xs < w)
     yc, xc = np.minimum(ys, h - 1), np.minimum(xs, w - 1)
     lum = luma(denoised).numpy().astype(np.float32)[yc, xc]
-    use = (inside & (ys % sample_step == 0) & (xs % sample_step == 0)
-           & ~sky.numpy()[yc, xc] & (lum > 0))
+    use = (inside & ((ys + y_base) % sample_step == 0)
+           & (xs % sample_step == 0) & ~sky.numpy()[yc, xc] & (lum > 0))
     val = np.where(use, np.log(np.float32(1e-6) + lum), np.float32(0))
     tile = lambda a: a.reshape(ny, th, nx, tw).transpose(0, 2, 1, 3) \
         .reshape(ny * nx, threads)
@@ -106,7 +111,13 @@ def kernel_exposure(denoised, sky, ae, cfg, sample_step):
     acc = np.zeros(threads, np.float32)
     for r in range(rows):          # thread t: tiles t, t + 256, ...
         acc = acc + pad[r * threads:(r + 1) * threads]
-    total, cnt = tree_sum(acc), int(part_c.sum())
+    return tree_sum(acc), int(part_c.sum())
+
+
+def kernel_exposure(denoised, sky, ae, cfg, sample_step):
+    """The kernel's exposure: the whole launch's ``kernel_partial``, then
+    the EMA of tonemap."""
+    total, cnt = kernel_partial(denoised, sky, sample_step)
     ae = np.float32(ae)
     if not cfg.auto_exposure:
         return ae
@@ -141,3 +152,38 @@ def test_fixed_order_exposure_matches_update_exposure(w, h, step):
     off = dataclasses.replace(cfg, auto_exposure=False)
     assert kernel_exposure(denoised.permute(1, 2, 0), sky, 0.8, off,
                            step) == np.float32(0.8)
+
+
+@pytest.mark.parametrize("world,step", [(4, 2), (3, 4), (6, 2)])
+def test_band_partials_match_exposure_partials(world, step):
+    """Launch A's partial over each extended band (its owned rows sampled
+    on global rows) against ``tonemap.exposure_partials`` of the owned
+    rows: equal counts, sums within 1e-4; summed over the bands, the
+    whole launch's partial."""
+    cfg = DEFAULT_CONFIG
+    w, h = 40, 36
+    packed = trace_kernel.pack_scene(SCENE_BUILDERS["cornell"]())
+    planes = [trace_kernel.trace_planes_plain(
+        packed.scene, ray_params(packed.scene.default_pose, w, h, f), f, w, h,
+        cfg) for f in (3, 2)]
+    _, denoised, _, _ = post_kernel.post_plain(
+        planes[0], planes[1], planes[0][0:3] * 1.1, torch.tensor(True),
+        torch.tensor(False), torch.tensor(0.8), cfg, step, False)
+    img = denoised.permute(1, 2, 0)
+    sky = planes[0][3] > 0.5
+    halo = post_kernel.halo_rows(cfg)
+    band = h // world
+    total_v, total_c = np.float32(0), 0
+    for r in range(world):
+        y0, y1 = r * band, (r + 1) * band
+        e0, e1 = max(0, y0 - halo), min(h, y1 + halo)
+        v, c = kernel_partial(img[e0:e1], sky[e0:e1], step, e0,
+                              (y0 - e0, y1 - e0))
+        want_v, want_c = tonemap.exposure_partials(img[y0:y1], sky[y0:y1],
+                                                   step, y0)
+        assert c == int(want_c)
+        assert abs(float(v) - float(want_v)) <= 1e-4
+        total_v, total_c = total_v + v, total_c + c
+    full_v, full_c = kernel_partial(img, sky, step)
+    assert total_c == full_c
+    assert abs(float(total_v) - float(full_v)) <= 1e-4

@@ -90,17 +90,29 @@ def screen_coord(x: torch.Tensor, size: int, sign: float) -> torch.Tensor:
     return (x.to(torch.float64) * (-sign * c) + sign).to(torch.float32)
 
 
+def pixel_grid(width: int, height: int, device, rows=None):
+    """(px, py) int32 (R, W) grids of the rows ``rows`` = (y0, y1) of a
+    frame ``height`` rows tall (every row when None): global row numbers,
+    so a band's rays, jitter and seeds are the whole frame's."""
+    y0, y1 = (0, height) if rows is None else rows
+    if not 0 <= y0 < y1 <= height:
+        raise ValueError(f"rows {rows} outside a frame of {height} rows")
+    px = torch.arange(width, dtype=torch.int32, device=device)[None].expand(
+        y1 - y0, width)
+    py = torch.arange(y0, y1, dtype=torch.int32,
+                      device=device)[:, None].expand(y1 - y0, width)
+    return px, py
+
+
 def make_jittered_rays(cam: CameraPose, width: int, height: int, frame_idx,
-                       params=None):
+                       params=None, rows=None):
     """The (H, W) grid of jittered primary rays as (origins, dirs), each
-    (H, W, 3) f32. ``params``: a precomputed (18,) ray_params row."""
+    (H, W, 3) f32. ``params``: a precomputed (18,) ray_params row.
+    ``rows`` = (y0, y1): only those rows of the ``height``-row frame,
+    (y1 - y0, W, 3)."""
     p = ray_params(cam, width, height, frame_idx) if params is None \
         else params
-    dev = p.device
-    px = torch.arange(width, dtype=torch.int32, device=dev)[None].expand(
-        height, width)
-    py = torch.arange(height, dtype=torch.int32, device=dev)[:, None].expand(
-        height, width)
+    px, py = pixel_grid(width, height, p.device, rows)
     base = sampler.bayer_base(px, py)
     jx = sampler.frac(sampler.frac(base + p[14]) + p[16]) - 0.5
     jy = sampler.frac(sampler.frac(base + p[15]) + p[17]) - 0.5

@@ -36,6 +36,18 @@
 //   models it on the CPU). Every block computes the same exposure itself;
 //   block 0 writes it.
 //
+// * Row bands (parallel/sharding.py): a band of a frame sharded by rows is
+//   two launches. Launch A is the kernel above over the band plus its halo
+//   rows (the extended band; its edges clamp like image edges, and what
+//   that changes stays inside the halo): it writes blended and denoised
+//   colour of the owned rows only and, in place of exposure and tail, one
+//   (log-luma sum, count) partial over the owned rows, sampled on global
+//   rows (y_base is the extended band's first global row), by the same
+//   fixed-order sum. The ranks combine their partials; launch B
+//   (post_band_tail, one thread a pixel) computes the exposure from the
+//   combined partial and runs the tail on the owned rows. The whole frame
+//   stays the one launch (y_base 0, every row owned, no partial out).
+//
 // Arithmetic follows the plain PyTorch stages (ops/taa.py, atrous.py,
 // tonemap.py, ansi.py) operation by operation; only the exposure sum's
 // order differs from torch's.
@@ -79,10 +91,14 @@ struct Post {
   float* out;
   int* ansi;
   float* ae_out;
+  float* part_out;   // band mode: the owned rows' (sum, count); else null
   float4* col;       // 2 x n: (rgb, luma), ping-pong between passes
   float4* guide;     // 2 x n: (unit normal, guide depth), (albedo, sky)
   float* partials;   // 2 per tile: log-luma sum, count (int bits)
   int w, h, n, tiles_x, n_tiles, iterations, fuse_tail;
+  // Owned rows [own0, own1) of the launch's rows, written to out with a
+  // plane stride of out_n pixels; y_base: the global row of row 0.
+  int own0, own1, out_n, y_base;
   PostArgs a;
 };
 
@@ -119,6 +135,14 @@ __device__ __forceinline__ bool tile_pixel(const Post& p, int tile, int& y, int&
   y = ty * TILE_H + (int)threadIdx.x / TILE_W;
   x = tx * TILE_W + (int)threadIdx.x % TILE_W;
   return y < p.h && x < p.w;
+}
+
+// Whether row y is owned, and pixel (y, x)'s index in out's planes.
+__device__ __forceinline__ bool owned(const Post& p, int y) {
+  return y >= p.own0 && y < p.own1;
+}
+__device__ __forceinline__ int out_index(const Post& p, int y, int x) {
+  return (y - p.own0) * p.w + x;
 }
 
 // Shared memory: a reduction area, then a pass's staged colour and guide;
@@ -286,12 +310,12 @@ __device__ void last_pass_tile(const Post& p, int tile, const Stencil& st, int s
   int y, x;
   float v = 0.0f;
   int cnt = 0;
-  if (tile_pixel(p, tile, y, x)) {
+  if (tile_pixel(p, tile, y, x) && owned(p, y)) {
     float4 c = atrous_pixel(p, st, step, y, x);
-    int i = y * p.w + x;
-    write_rgb(p.out + 3 * (size_t)p.n, p.n, i, c);
+    write_rgb(p.out + 3 * (size_t)p.out_n, p.out_n, out_index(p, y, x), c);
     bool sky = st.g1[st.win.cell(y, x)].w > 0.5f;
-    if (y % p.a.sample_step == 0 && x % p.a.sample_step == 0 && !sky && c.w > 0.0f) {
+    if ((y + p.y_base) % p.a.sample_step == 0 && x % p.a.sample_step == 0 && !sky &&
+        c.w > 0.0f) {
       v = logf(1e-6f + c.w);
       cnt = 1;
     }
@@ -304,16 +328,22 @@ __device__ void last_pass_tile(const Post& p, int tile, const Stencil& st, int s
 }
 
 // ---- exposure and tail (ops/tonemap.py, ops/ansi.py) -----------------------
-__device__ float exposure(const Post& p, const Smem& s) {
-  float v = 0.0f;
-  int cnt = 0;
+// The tiles' partials summed in one fixed order: strided over tiles, then
+// a tree over the block.
+__device__ void tile_total(const Post& p, const Smem& s, float& v, int& cnt) {
+  v = 0.0f;
+  cnt = 0;
   for (int k = threadIdx.x; k < p.n_tiles; k += THREADS) {
     v = v + p.partials[2 * k];
     cnt += __float_as_int(p.partials[2 * k + 1]);
   }
   block_sum(v, cnt, s);
-  const PostArgs& a = p.a;
-  float ae = *p.ae_in;
+}
+
+// The new exposure from the image's (log-luma sum, count) and the last one
+// (tonemap.exposure_from_partials).
+__device__ __forceinline__ float exposure_from(const PostArgs& a, float ae, float v,
+                                               int cnt) {
   if (a.auto_exposure) {
     float avg = expf(v / (float)max(cnt, 1));
     float target = fminf(fmaxf(a.ae_key / fmaxf(avg, 1e-6f), a.ae_min), a.ae_max);
@@ -321,6 +351,13 @@ __device__ float exposure(const Post& p, const Smem& s) {
     ae = ae + (target - ae) * a.ae_rate;
   }
   return ae;
+}
+
+__device__ float exposure(const Post& p, const Smem& s) {
+  float v;
+  int cnt;
+  tile_total(p, s, v, cnt);
+  return exposure_from(p.a, *p.ae_in, v, cnt);
 }
 
 __device__ __forceinline__ float aces(float x) {
@@ -339,21 +376,21 @@ __device__ __forceinline__ int cube_level(float v) {
 
 __constant__ float CUBE[6] = {0.0f, 95.0f, 135.0f, 175.0f, 215.0f, 255.0f};
 
-// Tone map + saturation + ANSI-256, in place on out[3:6] at pixel i.
-__device__ void tail_pixel(const Post& p, int i, float ae) {
-  const PostArgs& a = p.a;
-  float* img = p.out + 3 * (size_t)p.n;
+// Tone map + saturation + ANSI-256 of pixel i of the n-pixel planes src,
+// written to dst (may be src) and ansi.
+__device__ void tail_pixel(const PostArgs& a, const float* src, float* dst, int* ansi,
+                           size_t n, int i, float ae) {
   float eff = a.tone_exposure * ae;
   float c[3];
   for (int k = 0; k < 3; ++k)
-    c[k] = powf(fminf(fmaxf(aces(fmaxf(img[k * p.n + i], 0.0f) * eff), 0.0f), 1.0f),
+    c[k] = powf(fminf(fmaxf(aces(fmaxf(src[k * n + i], 0.0f) * eff), 0.0f), 1.0f),
                 a.inv_gamma);
   float y = luma(c[0], c[1], c[2]);
   float chroma = fmaxf(c[0], fmaxf(c[1], c[2])) - fminf(c[0], fminf(c[1], c[2]));
   float f = a.saturation * (1.0f + a.vibrance * (1.0f - chroma));
   for (int k = 0; k < 3; ++k) {
     c[k] = fminf(fmaxf(y + (c[k] - y) * f, 0.0f), 1.0f);
-    img[k * p.n + i] = c[k];
+    dst[k * n + i] = c[k];
   }
   float r = srgb8(c[0]), g = srgb8(c[1]), b = srgb8(c[2]);
   int ir = cube_level(r), ig = cube_level(g), ib = cube_level(b);
@@ -366,7 +403,7 @@ __device__ void tail_pixel(const Post& p, int i, float ae) {
   float gr = r - gv, gg = g - gv, gbb = b - gv;
   float d_gray = gr * gr + gg * gg + gbb * gbb + 64.0f;
   float chr = fmaxf(fabsf(r - g), fmaxf(fabsf(r - b), fabsf(g - b)));
-  p.ansi[i] = (chr <= 18.0f && d_gray < d_cube) ? 232 + gi : idx_cube;
+  ansi[i] = (chr <= 18.0f && d_gray < d_cube) ? 232 + gi : idx_cube;
 }
 
 // Every block: the exposure; block 0 writes it; with the tail, the
@@ -375,9 +412,22 @@ __device__ void exposure_and_tail(const Post& p, const Smem& s) {
   float ae = exposure(p, s);
   if (blockIdx.x == 0 && threadIdx.x == 0) *p.ae_out = ae;
   if (!p.fuse_tail) return;
+  float* img = p.out + 3 * (size_t)p.n;
   for (int t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
     int y, x;
-    if (tile_pixel(p, t, y, x)) tail_pixel(p, y * p.w + x, ae);
+    if (tile_pixel(p, t, y, x)) tail_pixel(p.a, img, img, p.ansi, p.n, y * p.w + x, ae);
+  }
+}
+
+// Band mode, launch A's end: block 0 writes the owned rows' partial.
+__device__ void band_partial(const Post& p, const Smem& s) {
+  if (blockIdx.x != 0) return;
+  float v;
+  int cnt;
+  tile_total(p, s, v, cnt);
+  if (threadIdx.x == 0) {
+    p.part_out[0] = v;
+    p.part_out[1] = (float)cnt;
   }
 }
 
@@ -448,7 +498,7 @@ __global__ void __launch_bounds__(THREADS) post_persistent(Post p) {
       float4 c, g0, g1;
       taa_pixel(p, reset, stage_taa ? s.ls : nullptr, win, y, x, c, g0, g1);
       int i = y * p.w + x;
-      write_rgb(p.out, p.n, i, c);
+      if (owned(p, y)) write_rgb(p.out, p.out_n, out_index(p, y, x), c);
       p.col[i] = c;
       p.guide[i] = g0;
       p.guide[p.n + i] = g1;
@@ -476,7 +526,23 @@ __global__ void __launch_bounds__(THREADS) post_persistent(Post p) {
     }
   }
   grid.sync();
-  exposure_and_tail(p, s);
+  if (p.part_out)
+    band_partial(p, s);
+  else
+    exposure_and_tail(p, s);
+}
+
+// Band mode, launch B: the exposure from the ranks' combined partial
+// total = (log-luma sum, count), then with fuse_tail the tail of the n
+// owned pixels from src into dst and ansi.
+__global__ void __launch_bounds__(THREADS)
+post_band_tail(const float* __restrict__ src, float* __restrict__ dst, int* __restrict__ ansi,
+               const float* __restrict__ total, const float* __restrict__ ae_in,
+               float* __restrict__ ae_out, int n, int fuse_tail, PostArgs a) {
+  float ae = exposure_from(a, *ae_in, total[0], (int)total[1]);
+  int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i == 0) *ae_out = ae;
+  if (fuse_tail && i < n) tail_pixel(a, src, dst, ansi, (size_t)n, i, ae);
 }
 
 // Blocks per SM of the persistent kernel at ``smem`` bytes, and SMs; asked
@@ -509,23 +575,30 @@ cudaError_t persistent_capacity(size_t smem, int& per_sm, int& sms) {
 
 }  // namespace
 
+// The whole frame (part_out null: y_base 0, own0 0, own1 height) or launch
+// A of a band (part_out: 2 floats; ansi, ae_in, ae_out unused).
 extern "C" int yacge_post_launch(
     const float* gbuf, const float* prev_gbuf, const float* history,
     const unsigned char* force_reset, const unsigned char* history_valid,
     const float* ae_in, float* out, int* ansi, float* ae_out, float* scratch,
-    int width, int height, int iterations, int fuse_tail, float alpha,
+    float* part_out, int width, int height, int y_base, int own0, int own1,
+    int iterations, int fuse_tail, float alpha,
     float lum_pad, int clamp_radius, float inv_c, float inv_n, float inv_z,
     float inv_a, int sample_step, int auto_exposure, float ae_key,
     float ae_min, float ae_max, float ae_rate, float tone_exposure,
     float inv_gamma, float saturation, float vibrance, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (iterations < 1 || clamp_radius < 0 || sample_step < 1)
+  if (iterations < 1 || clamp_radius < 0 || sample_step < 1 || y_base < 0 ||
+      own0 < 0 || own0 >= own1 || own1 > height ||
+      (!part_out && (y_base != 0 || own0 != 0 || own1 != height)))
     return (int)cudaErrorInvalidValue;
   Post p;
   p.gb = gbuf; p.prev = prev_gbuf; p.hist = history;
   p.force_reset = force_reset; p.history_valid = history_valid;
   p.ae_in = ae_in; p.out = out; p.ansi = ansi; p.ae_out = ae_out;
+  p.part_out = part_out;
   p.w = width; p.h = height; p.n = width * height;
+  p.own0 = own0; p.own1 = own1; p.out_n = width * (own1 - own0); p.y_base = y_base;
   p.tiles_x = (width + TILE_W - 1) / TILE_W;
   p.n_tiles = p.tiles_x * ((height + TILE_H - 1) / TILE_H);
   p.iterations = iterations; p.fuse_tail = fuse_tail;
@@ -546,4 +619,21 @@ extern "C" int yacge_post_launch(
   void* args[] = {&p};
   return (int)cudaLaunchCooperativeKernel((void*)post_persistent, grid, THREADS, args,
                                           smem, stream);
+}
+
+extern "C" int yacge_post_tail_launch(
+    const float* src, float* dst, int* ansi, const float* total, const float* ae_in,
+    float* ae_out, int n, int fuse_tail, float alpha, float lum_pad, int clamp_radius,
+    float inv_c, float inv_n, float inv_z, float inv_a, int sample_step,
+    int auto_exposure, float ae_key, float ae_min, float ae_max, float ae_rate,
+    float tone_exposure, float inv_gamma, float saturation, float vibrance,
+    void* stream_ptr) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  PostArgs a{alpha, lum_pad, clamp_radius, inv_c, inv_n, inv_z, inv_a,
+             sample_step, auto_exposure, ae_key, ae_min, ae_max, ae_rate,
+             tone_exposure, inv_gamma, saturation, vibrance};
+  int grid = fuse_tail ? (n + THREADS - 1) / THREADS : 1;
+  post_band_tail<<<grid, THREADS, 0, (cudaStream_t)stream_ptr>>>(
+      src, dst, ansi, total, ae_in, ae_out, n, fuse_tail, a);
+  return (int)cudaGetLastError();
 }

@@ -7,7 +7,11 @@
 // tree: the mirror/refraction stack, Oren-Nayar direct light with shadow
 // rays (tinted transmittance through transparent hits), one diffuse bounce,
 // the sky gradient and emission. It writes 12 planes: radiance rgb, sky,
-// albedo rgb, normal xyz, depth and the pixel's ray count.
+// albedo rgb, normal xyz, depth and the pixel's ray count. A launch traces
+// the rows [y0, y0 + band_h) of a frame ``height`` rows tall (a row band of
+// parallel/sharding.py; the whole frame is y0 = 0, band_h = height): its
+// pixels take their global row for the jitter, v and the seed, so a band's
+// planes are those rows of the whole frame's.
 //
 // What bounds it on this card: divergent scalar float math per ray (IEEE
 // divisions and square roots in dependent chains under -fmad=false) over
@@ -342,7 +346,7 @@ __global__ void __launch_bounds__(THREADS)
 trace_kernel(const float* __restrict__ sc_g, const int* __restrict__ hdr_g,
              int table_len, const float* __restrict__ params_all,
              const int* __restrict__ frames, int row, float* __restrict__ out,
-             int width, int height, TraceArgs cfg) {
+             int width, int height, int y0, int band_h, TraceArgs cfg) {
   extern __shared__ float smem[];
   int* hdr = reinterpret_cast<int*>(smem);
   float* sc = smem + HDR_PAD;
@@ -350,8 +354,10 @@ trace_kernel(const float* __restrict__ sc_g, const int* __restrict__ hdr_g,
   for (int k = threadIdx.x; k < table_len; k += THREADS) sc[k] = sc_g[k];
   __syncthreads();
 
+  // Pixel pix of the band is global row y0 + pix / width of a frame
+  // ``height`` rows tall; out holds the band's rows only.
   int pix = blockIdx.x * THREADS + threadIdx.x;
-  int n_pix = width * height;
+  int n_pix = width * band_h;
   if (pix >= n_pix) return;
   float* st = sc + table_len + threadIdx.x * cfg.stack_slots * W_STACK;
 
@@ -361,7 +367,7 @@ trace_kernel(const float* __restrict__ sc_g, const int* __restrict__ hdr_g,
   V3 bg_top = ld3(glob + 4), bg_bottom = ld3(glob + 7);
 
   // ---- jittered primary ray (core/camera.py make_jittered_rays) ----------
-  int py = pix / width, px = pix - py * width;
+  int py = y0 + pix / width, px = pix - (py - y0) * width;
   int bx = px & 7, by = py & 7, bxy = bx ^ by, bv = 0;
   for (int i = 0; i < 3; ++i)
     bv += (((bxy >> i) & 1) << (2 * (2 - i) + 1)) + (((by >> i) & 1) << (2 * (2 - i)));
@@ -542,7 +548,8 @@ const char* yacge_error_string(int err) {
 
 int yacge_trace_launch(const float* scene, const int* header, int table_len,
                        const float* params_all, const int* frames, int row,
-                       float* out, int width, int height, int max_rounds,
+                       float* out, int width, int height, int y0, int band_h,
+                       int max_rounds,
                        int max_mirror, int max_refr, int diffuse_bounces,
                        int stack_slots, float mirror_threshold,
                        float on_a, float on_b, unsigned long long salt,
@@ -556,9 +563,11 @@ int yacge_trace_launch(const float* scene, const int* header, int table_len,
         trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  int n = width * height;
+  if (y0 < 0 || band_h < 1 || y0 + band_h > height) return (int)cudaErrorInvalidValue;
+  int n = width * band_h;
   trace_kernel<<<(n + THREADS - 1) / THREADS, THREADS, smem, (cudaStream_t)stream_ptr>>>(
-      scene, header, table_len, params_all, frames, row, out, width, height, cfg);
+      scene, header, table_len, params_all, frames, row, out, width, height, y0, band_h,
+      cfg);
   return (int)cudaGetLastError();
 }
 

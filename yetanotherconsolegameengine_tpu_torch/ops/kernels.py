@@ -39,10 +39,15 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "yacge_error_string": ([_I], ctypes.c_char_p),
     "yacge_trace_launch": ([_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _F, _F, _F, ctypes.c_ulonglong, _P], _I),
-    "yacge_post_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _F, _F, _I, _F, _F, _F, _F, _I,
-                           _I, _F, _F, _F, _F, _F, _F, _F, _F, _P], _I),
+                            _I, _I, _I, _I, _F, _F, _F, ctypes.c_ulonglong,
+                            _P], _I),
+    "yacge_post_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _F, _F,
+                           _F, _F, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                           _P], _I),
+    "yacge_post_tail_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I,
+                                _F, _F, _F, _F, _I, _I, _F, _F, _F, _F, _F,
+                                _F, _F, _F, _P], _I),
     "yacge_cluster_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P], _I),
 }

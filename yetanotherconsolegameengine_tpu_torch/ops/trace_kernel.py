@@ -28,7 +28,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..core import sampler
-from ..core.camera import make_jittered_rays
+from ..core.camera import make_jittered_rays, pixel_grid
 from ..scene.materials import PROC_CELL_TINT
 from ..scene.tables import PRIMITIVE_TABLES, SceneData
 from . import kernels
@@ -134,17 +134,17 @@ def pack_scene(scene: SceneData) -> PackedScene:
 
 def trace_planes_plain(scene: SceneData, params_row: torch.Tensor,
                        frame_idx: int, width: int, height: int,
-                       cfg: RenderConfig) -> torch.Tensor:
-    """The plain version of the kernel: (12, H, W) f32 planes."""
+                       cfg: RenderConfig, rows=None) -> torch.Tensor:
+    """The plain version of the kernel: (12, H, W) f32 planes, or with
+    ``rows`` = (y0, y1) the (12, y1 - y0, W) planes of those rows of the
+    ``height``-row frame."""
     o, d = make_jittered_rays(None, width, height, frame_idx,
-                              params=params_row)
-    dev = params_row.device
-    px = torch.arange(width, device=dev)[None].expand(height, width)
-    py = torch.arange(height, device=dev)[:, None].expand(height, width)
+                              params=params_row, rows=rows)
+    px, py = pixel_grid(width, height, params_row.device, rows)
     seed = sampler.per_frame_seed(px, py, frame_idx, cfg.seed_salt)
     res = trace_all(scene, o.reshape(-1, 3), d.reshape(-1, 3),
                     seed.reshape(-1), cfg, "plain")
-    return result_planes(res, width, height)
+    return result_planes(res, width, px.shape[0])
 
 
 def lane_columns(res) -> torch.Tensor:
@@ -177,13 +177,18 @@ def check_shared(table_len: int, slots: int) -> None:
 
 def trace_planes(packed: PackedScene, params: torch.Tensor,
                  frames: torch.Tensor, row: int, width: int, height: int,
-                 cfg: RenderConfig) -> torch.Tensor:
+                 cfg: RenderConfig, rows=None) -> torch.Tensor:
     """Trace frame ``row`` of a batch: ``params`` (N, 18) f32 ray_params
     rows and ``frames`` (N,) i32 frame indices, both on the scene's device.
-    Returns the (12, H, W) f32 G-buffer."""
+    Returns the (12, H, W) f32 G-buffer; with ``rows`` = (y0, y1) the
+    (12, y1 - y0, W) G-buffer of those rows of the ``height``-row frame
+    (a row band: the kernel maps its pixels to global rows)."""
     if params.device.type == "cpu":
         return trace_planes_plain(packed.scene, params[row],
-                                  int(frames[row]), width, height, cfg)
+                                  int(frames[row]), width, height, cfg, rows)
+    y0, y1 = (0, height) if rows is None else rows
+    if not 0 <= y0 < y1 <= height:
+        raise ValueError(f"rows {rows} outside a frame of {height} rows")
     n = params.shape[0]
     kernels.require(params, "params", torch.float32, (n, 18))
     kernels.require(frames, "frames", torch.int32, (n,))
@@ -195,13 +200,13 @@ def trace_planes(packed: PackedScene, params: torch.Tensor,
     check_shared(packed.table.numel(), slots)
     sigma = cfg.diffuse_sigma_deg * math.pi / 180.0
     s2 = sigma * sigma
-    out = torch.empty((12, height, width), dtype=torch.float32,
+    out = torch.empty((12, y1 - y0, width), dtype=torch.float32,
                       device=params.device)
     lib = kernels.library()
     err = lib.yacge_trace_launch(
         packed.table.data_ptr(), packed.header.data_ptr(),
         packed.table.numel(), params.data_ptr(), frames.data_ptr(), row,
-        out.data_ptr(), width, height, cfg.max_trace_rounds,
+        out.data_ptr(), width, height, y0, y1 - y0, cfg.max_trace_rounds,
         cfg.max_mirror_bounces, cfg.max_refractions, cfg.diffuse_bounces,
         slots, cfg.mirror_threshold,
         1.0 - s2 / (2.0 * (s2 + 0.33)), 0.45 * s2 / (s2 + 0.09),

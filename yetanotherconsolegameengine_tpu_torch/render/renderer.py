@@ -49,7 +49,8 @@ import torch
 
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..core import sampler
-from ..core.camera import CameraPose, make_jittered_rays, ray_params
+from ..core.camera import (CameraPose, make_jittered_rays, pixel_grid,
+                           ray_params)
 from ..devices import resolve_device, resolve_impl
 from ..ops import ansi, post_kernel, taa, tonemap, trace, trace_kernel
 from ..scene.tables import SceneData
@@ -61,6 +62,8 @@ BLOCK = 16   # primary lanes of cluster scenes in BLOCK x BLOCK pixel blocks
 class FrameState:
     """State threaded through frames; tensors live on the render device."""
 
+    # A band of a sharded frame holds the owned rows of the history and
+    # the extended band's rows of the G-buffer (init_state(shard=)).
     history: torch.Tensor        # (3, hiH, hiW) blended radiance
     prev_gbuf: torch.Tensor      # (12, hiH, hiW) last frame's G-buffer
     history_valid: torch.Tensor  # () bool
@@ -83,14 +86,20 @@ class FrameOutput:
     rays_traced: torch.Tensor  # () int64
 
 
-def init_state(fb_w: int, fb_h: int, ss: int = 1,
-               device="cuda") -> FrameState:
+def init_state(fb_w: int, fb_h: int, ss: int = 1, device="cuda",
+               shard=None) -> FrameState:
+    """A fresh frame state; with ``shard`` (a ``parallel.sharding.RowShard``)
+    the state of its band: the history of the owned rows and the G-buffer
+    of the extended band (``shard.ext``)."""
     device = resolve_device(device)
     hi_w, hi_h = fb_w * ss, fb_h * 2 * ss
+    own_h = ext_h = hi_h
+    if shard is not None:
+        own_h, ext_h = shard.y1 - shard.y0, shard.ext[1] - shard.ext[0]
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
     false = torch.zeros((), dtype=torch.bool, device=device)
     return FrameState(
-        history=z(3, hi_h, hi_w), prev_gbuf=z(12, hi_h, hi_w),
+        history=z(3, own_h, hi_w), prev_gbuf=z(12, ext_h, hi_w),
         history_valid=false, ae_exposure=z() + 1.0,
         last_cam=z(3), last_yaw=z(), last_pitch=z(), have_last=false,
         frame_idx=0)
@@ -129,33 +138,45 @@ def frame_inputs(cams: CameraPose, state: FrameState, hi_w: int, hi_h: int,
 
 def trace_wavefront_planes(scene: SceneData, params_row: torch.Tensor, frame,
                            width: int, height: int, cfg: RenderConfig,
-                           impl: Optional[str] = None) -> torch.Tensor:
+                           impl: Optional[str] = None,
+                           rows=None) -> torch.Tensor:
     """The (12, H, W) G-buffer of a scene traced by the wavefront:
     jittered rays and per-pixel seeds, then ``trace.trace_all``. For a
     cluster-mesh scene with ``cfg.block_order_primary`` and
     ``width % 16 == 0`` the lanes run in 16x16 pixel-block order (each
     256-lane tile of the primary sweep is one square block, swept
     unsorted), rows padded to a multiple of 16 with dead lanes that the
-    G-buffer, and so ``rays_traced``, leaves out.
+    G-buffer, and so ``rays_traced``, leaves out. ``rows`` = (y0, y1):
+    trace only those rows of the ``height``-row frame, (12, y1 - y0, W);
+    the blocks stay on the frame's 16-row grid, the band padded with dead
+    rows above and below to whole blocks. A band whose edges fall inside
+    a block sweeps those tiles with fewer live rays than the whole frame,
+    which can change their cluster lists' order and so which of two
+    triangles of equal quantized t wins (K3's tie rule).
     ``frame`` is an int or a 0-d integer tensor."""
     dev = params_row.device
     impl = resolve_impl(impl, dev)
-    o, d = make_jittered_rays(None, width, height, frame, params=params_row)
-    px = torch.arange(width, device=dev)[None].expand(height, width)
-    py = torch.arange(height, device=dev)[:, None].expand(height, width)
+    o, d = make_jittered_rays(None, width, height, frame, params=params_row,
+                              rows=rows)
+    px, py = pixel_grid(width, height, dev, rows)
     seed = sampler.per_frame_seed(px, py, frame, cfg.seed_salt)
+    height = px.shape[0]
     if not (cfg.block_order_primary and scene.mesh_clusters is not None
             and width % BLOCK == 0):
         res = trace.trace_all(scene, o.reshape(-1, 3), d.reshape(-1, 3),
                               seed.reshape(-1), cfg, impl)
         return trace_kernel.result_planes(res, width, height)
-    hp = (height + BLOCK - 1) // BLOCK * BLOCK
+    # Blocks on the whole frame's 16-row grid: a band starting inside a
+    # block gets dead rows above its first, so each of its tiles is the
+    # whole frame's tile less the rows of other bands.
+    top = 0 if rows is None else rows[0] % BLOCK
+    hp = (top + height + BLOCK - 1) // BLOCK * BLOCK
 
     def to_blocks(x, fill):
         if hp != height:
-            pad = torch.full((hp - height,) + x.shape[1:], fill,
-                             dtype=x.dtype, device=dev)
-            x = torch.cat([x, pad])
+            pad = lambda n: torch.full((n,) + x.shape[1:], fill,
+                                       dtype=x.dtype, device=dev)
+            x = torch.cat([pad(top), x, pad(hp - top - height)])
         tail = x.shape[2:]
         x = x.reshape(hp // BLOCK, BLOCK, width // BLOCK, BLOCK, *tail)
         return x.transpose(1, 2).reshape(hp * width, *tail)
@@ -163,8 +184,8 @@ def trace_wavefront_planes(scene: SceneData, params_row: torch.Tensor, frame,
     def from_blocks(x):
         tail = x.shape[1:]
         x = x.reshape(hp // BLOCK, width // BLOCK, BLOCK, BLOCK, *tail)
-        return x.transpose(1, 2).reshape(hp, width, *tail)[:height] \
-            .reshape(height * width, *tail)
+        return x.transpose(1, 2).reshape(hp, width, *tail)[
+            top:top + height].reshape(height * width, *tail)
 
     res = trace.trace_all(
         scene, to_blocks(o, 2.9e30), to_blocks(d, 1.0), to_blocks(seed, 0),
@@ -176,43 +197,69 @@ def trace_wavefront_planes(scene: SceneData, params_row: torch.Tensor, frame,
 def frame_step(packed, cams: CameraPose, inputs, row: int,
                state: FrameState, fb_w: int, fb_h: int, ss: int = 1,
                cfg: RenderConfig = DEFAULT_CONFIG,
-               impl: Optional[str] = None):
+               impl: Optional[str] = None, shard=None, group=None):
     """Render frame ``row`` of a batch whose ``frame_inputs`` are
     ``inputs``. ``packed``: a ``trace_kernel.PackedScene`` of a scene the
     trace kernel takes, or the ``SceneData`` of any other. ``impl`` (None:
     from the device) picks kernels or plain versions. Returns
-    (FrameOutput, new FrameState)."""
+    (FrameOutput, new FrameState).
+
+    ``shard`` + ``group`` (``parallel.sharding``): render this rank's
+    band of a frame sharded by rows. The band traces its owned rows,
+    ``group.extend`` brings the extended band's G-buffer and history from
+    the other ranks, the post runs as launch A over the extended band,
+    ``group.combine`` sums the ranks' exposure partials and ray counts,
+    and launch B posts the owned rows. ``state`` is the band's
+    (``init_state(shard=)``); the output holds the band's cell rows and
+    the whole frame's ``rays_traced``."""
     impl = resolve_impl(impl, cams.pos.device)
     hi_w, hi_h = fb_w * ss, fb_h * 2 * ss
     params, frames, resets = inputs
+    rows = None if shard is None else (shard.y0, shard.y1)
     if isinstance(packed, SceneData):
         gbuf = trace_wavefront_planes(packed, params[row], frames[row],
-                                      hi_w, hi_h, cfg, impl)
+                                      hi_w, hi_h, cfg, impl, rows)
     elif impl == "kernel":
         gbuf = trace_kernel.trace_planes(packed, params, frames, row,
-                                         hi_w, hi_h, cfg)
+                                         hi_w, hi_h, cfg, rows)
     else:
         gbuf = trace_kernel.trace_planes_plain(
-            packed.scene, params[row], int(frames[row]), hi_w, hi_h, cfg)
-    post = post_kernel.post if impl == "kernel" else post_kernel.post_plain
+            packed.scene, params[row], int(frames[row]), hi_w, hi_h, cfg,
+            rows)
+    kernel = impl == "kernel"
     fuse_tail = ss == 1
-    blended, img, idx, new_ae = post(
-        gbuf, state.prev_gbuf, state.history, state.history_valid,
-        resets[row], state.ae_exposure, cfg, max(2, ss * 2), fuse_tail)
+    step = max(2, ss * 2)
+    rays = gbuf[11].to(torch.int64).sum()
+    if shard is None:
+        post = post_kernel.post if kernel else post_kernel.post_plain
+        blended, img, idx, new_ae = post(
+            gbuf, state.prev_gbuf, state.history, state.history_valid,
+            resets[row], state.ae_exposure, cfg, step, fuse_tail)
+    else:
+        band = post_kernel.post_band if kernel else post_kernel.post_band_plain
+        tail = (post_kernel.post_band_tail if kernel
+                else post_kernel.post_band_tail_plain)
+        gbuf, history = group.extend(shard, gbuf, state.history)
+        blended, denoised, part = band(
+            gbuf, state.prev_gbuf, history, state.history_valid, resets[row],
+            cfg, step, shard.ext[0], shard.own)
+        total, rays = group.combine(part, rays)
+        img, idx, new_ae = tail(denoised, total, state.ae_exposure, cfg,
+                                fuse_tail)
     if fuse_tail:
         # Even/odd rows are the top/bottom halves of each cell.
         mapped = img.permute(1, 2, 0)
         top, bot = mapped[0::2], mapped[1::2]
         fg, bg = idx[0::2], idx[1::2]
     else:
-        cells = img.permute(1, 2, 0).reshape(fb_h, 2, ss, fb_w, ss, 3) \
+        cells = img.permute(1, 2, 0).reshape(-1, 2, ss, fb_w, ss, 3) \
             .mean(dim=(2, 4))
         exposure = cfg.tone_exposure * new_ae
         top = tonemap.map_pixels(cells[:, 0], exposure, cfg)
         bot = tonemap.map_pixels(cells[:, 1], exposure, cfg)
         fg, bg = ansi.rgb_to_ansi256(top), ansi.rgb_to_ansi256(bot)
     out = FrameOutput(top_rgb=top, bot_rgb=bot, fg_ansi=fg, bg_ansi=bg,
-                      rays_traced=gbuf[11].to(torch.int64).sum())
+                      rays_traced=rays)
     new_state = FrameState(
         history=blended, prev_gbuf=gbuf,
         history_valid=torch.ones((), dtype=torch.bool, device=gbuf.device),
