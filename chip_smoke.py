@@ -100,10 +100,23 @@ Phases (one line each; any failure raises and exits non-zero):
      rank's launch counts; (d) Cornell 160x88 ms/frame by CUDA events at 1,
      2 and 4 ranks on the one card (the cost of the exchange and the split
      post where ranks share a card, not a scale-out figure)
+ 24. the benchmark suite (``…_torch/bench_suite.py``) on the card: (a)
+     ``mirror_spheres`` at 240x135 with ss=2 (480x540 traced pixels),
+     kernel vs plain renderer over 4 frames, and a room lit by 10 lights
+     (more than the JAX megakernel takes) through the trace kernel
+     against its plain version at 160x180 and kernel vs plain renderer at
+     160x90; (b) the suite's rows 1-5 (Cornell, mirror spheres at ss=1
+     and 2, the primitive showcase, voxel_test; sustained batches cut to
+     200 frames), each row's trace and post kernels first held against
+     their plain versions on its scene at its own traced size (160x180,
+     240x270, 480x540), and its LBVH row through the suite's own
+     functions, each printed row parsed, its rates finite and positive
+     and its ``kernels`` those of the scene's route; (c) ``python -m
+     yetanotherconsolegameengine_tpu_torch.bench`` once
 Then a JSON line of per-kernel results (``ms`` is the device time,
 ``event_ms`` the CUDA-event time; ``launches`` counts Cornell's timed run for
-K1 and K2 and the dragon's for K3, ``launches_by_path`` every timed run and
-the shell's runs),
+K1 and K2 and the dragon's for K3, ``launches_by_path`` every timed run,
+the shell's runs and the suite's rows),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -112,6 +125,7 @@ Imports nothing of JAX: the JAX package is not needed on the card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -143,6 +157,7 @@ from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import (
     FORCED_SCENE_BUILDERS)
 from yetanotherconsolegameengine_tpu_torch.tools.profile_frame import (
     cuda_ms, device_ms, k3_work, roofline)
+from yetanotherconsolegameengine_tpu_torch.utils.profiling import timed
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRACE_SCENES = ("cornell", "glass", "mirror_spheres")
@@ -171,6 +186,10 @@ DYNAMIC_TIMES = (0.0, 1.3, 2.0)
 SPIN_FRAMES = 4                 # bench_suite's "Spinning mesh" row, 160x90
 RING_FRAMES = 10
 SHELL_TICKS = 60                # the terminal program's frames
+# bench_suite rows 1-5 with their sustained batches cut from 2000 frames
+# (400 at ss=2) to this many, so phase 24 stays near a minute.
+SUITE_BATCH = 200
+N_LIGHTS = 10                   # above the JAX megakernel's limit of 8
 # fp32 operations per K2 ray-primitive test (a slab test: 6 sub, 6 mul,
 # 12 min/max) and per K1 pixel and stage: the TAA 3x3 clamp ~100, a 5x5
 # a-trous pass of 25 taps x ~30, the exposure sample's luma and log ~10,
@@ -325,21 +344,14 @@ def timed_frames(r, n: int, keys, warmup: int = 2, poses=None,
     kernels.reset_launches()
     mesh_bvh.STATS.clear()
     dda.STATS.clear()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    grids, out = r.render_many(n, poses=poses, **dyn)
-    stop.record()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / n
+    ms, wall, (grids, out) = timed(
+        lambda: r.render_many(n, poses=poses, **dyn), n, r.device)
     launches = dict(kernels.LAUNCHES)
     for k in keys:
         assert launches[k] > 0, f"kernel {k} was not launched by the path"
     fg = _np(grids[0])
     assert fg.shape == (n, r.fb_h, r.fb_w) and fg.min() >= 16
     assert np.isfinite(_np(out.top_rgb)).all()
-    ms = start.elapsed_time(stop) / n
     rays = int(out.rays_traced)
     return {"ms": ms, "host_ms": wall, "rays": rays,
             "mray_s": rays / ms / 1e3, "launches": launches,
@@ -359,14 +371,14 @@ def idle_share(r, poses) -> dict:
 
 
 def renderer_contract(scene, w, h, dev, frames: int = 4, cam=None,
-                      scene_fn=None):
-    """Kernel vs plain renderer on the card over ``frames`` frames (from
-    camera ``cam`` = (pos, yaw, pitch) when given; for a dynamic scene,
-    frames of ``scene_fn`` at 30 fps with ``scene`` set as not static):
-    RGB within 2e-3, ANSI flips under 0.5%, equal rays_traced. Returns
-    (the errors, the kernel renderer)."""
-    rk = RaytraceRenderer(scene, w, h, device=dev, impl="kernel")
-    rp = RaytraceRenderer(scene, w, h, device=dev, impl="plain")
+                      scene_fn=None, ss: int = 1):
+    """Kernel vs plain renderer on the card over ``frames`` frames at
+    supersampling ``ss`` (from camera ``cam`` = (pos, yaw, pitch) when
+    given; for a dynamic scene, frames of ``scene_fn`` at 30 fps with
+    ``scene`` set as not static): RGB within 2e-3, ANSI flips under 0.5%,
+    equal rays_traced. Returns (the errors, the kernel renderer)."""
+    rk = RaytraceRenderer(scene, w, h, ss=ss, device=dev, impl="kernel")
+    rp = RaytraceRenderer(scene, w, h, ss=ss, device=dev, impl="plain")
     dyn = {}
     if scene_fn is not None:
         dyn = dict(scene_fn=scene_fn, times=frame_times(0, frames))
@@ -1057,6 +1069,140 @@ def sharding_phases(dev, card, packs, post_in, dragon, cfg) -> dict:
             "dragon_ms": max(dragon_ms)}
 
 
+def many_lights_scene(SceneBuilder, Material):
+    """Cornell's room with a mirror sphere, lit by ``N_LIGHTS`` colored
+    point lights in a ring under the ceiling, built with the given
+    package's ``SceneBuilder`` and ``Material``. The JAX package sends a
+    scene of more than 8 lights to its wavefront
+    (``ops/pallas_trace.py:80``); the port's trace kernel loops over every
+    light of the table."""
+    s = SceneBuilder("many_lights")
+    s.ambient_color, s.ambient_intensity = (1, 1, 1), 0.02
+    white = Material.solid((0.82, 0.82, 0.82))
+    s.add_yz_rect(0.0, 5.0, -5.0, 0.0, -3.0, Material.solid((0.8, 0.1, 0.1)))
+    s.add_yz_rect(0.0, 5.0, -5.0, 0.0, 3.0, Material.solid((0.1, 0.8, 0.1)))
+    s.add_xz_rect(-3.0, 3.0, -5.0, 0.0, 0.0, white)
+    s.add_xz_rect(-3.0, 3.0, -5.0, 0.0, 5.0, white)
+    s.add_xy_rect(-3.0, 3.0, 0.0, 5.0, -5.0, white)
+    s.add_box((-2.2, 0.0, -4.0), (-0.8, 1.0, -2.8), white)
+    s.add_sphere((1.2, 0.9, -2.9), 0.9,
+                 Material.solid((0.95, 0.95, 0.95), reflectivity=0.7))
+    for i in range(N_LIGHTS):
+        a = 2.0 * math.pi * i / N_LIGHTS
+        s.add_light((1.8 * math.cos(a), 4.3, -2.6 + 1.5 * math.sin(a)),
+                    (0.6 + 0.4 * math.cos(a), 0.8, 0.6 + 0.4 * math.sin(a)),
+                    3.0)
+    s.bg_top = s.bg_bottom = (0.0, 0.0, 0.0)
+    s.set_camera((0.0, 1.0, 3.0), fov=60.0)
+    return s.build()
+
+
+def row_kernels_contract(scene, w: int, h: int, ss: int, dev, cfg) -> dict:
+    """K2 and K1 against their plain versions on a suite row's own scene
+    and traced size (w * ss by h * 2 * ss pixels), with the post options
+    the renderer gives that ss (sample step max(2, 2 ss), tail fused at
+    ss=1): the trace contract and the post contract."""
+    hw, hh = w * ss, h * 2 * ss
+    packed = trace_kernel.pack_scene(scene.to(dev))
+    params, frames = trace_inputs(packed.scene, hw, hh, TRACE_FRAME, dev)
+    got = trace_kernel.trace_planes(packed, params, frames, 0, hw, hh, cfg)
+    torch.cuda.synchronize()
+    trace = trace_contract(_np(got), _np(trace_kernel.trace_planes_plain(
+        packed.scene, params[0], TRACE_FRAME, hw, hh, cfg)))
+    inputs = post_inputs(packed, hw, hh, dev, cfg)
+    opts = (cfg, max(2, 2 * ss), ss == 1)
+    got = post_kernel.post(*inputs, *opts)
+    torch.cuda.synchronize()
+    post = post_contract([_np(x) for x in got],
+                         [_np(x) for x in post_kernel.post_plain(*inputs,
+                                                                 *opts)])
+    return {"size": f"{hw}x{hh}", "trace": trace, "post": post}
+
+
+def captured_row(fn):
+    """Run a ``bench_suite`` row function; returns (the one line it
+    printed, parsed; the launch counts of the row's timed loops)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn()
+    lines = buf.getvalue().splitlines()
+    assert len(lines) == 1, lines
+    return json.loads(lines[0]), dict(kernels.LAUNCHES)
+
+
+def suite_phase(dev, card, cfg) -> dict:
+    """Phase 24: the two open checks (the mirror_spheres ss=2 frame and a
+    10-light frame through K2, each against its plain version), the
+    suite's rows 1-5 (each row's K2 and K1 first held against plain on
+    its scene at its own size) and 14, and ``python -m
+    yetanotherconsolegameengine_tpu_torch.bench``. Returns the rows'
+    launch counts by row for the kernels line."""
+    t0 = time.perf_counter()
+    mirror = SCENE_BUILDERS["mirror_spheres"]()
+    ss2_err, _ = renderer_contract(mirror, DRAGON_W, DRAGON_H, dev, ss=2)
+    from yetanotherconsolegameengine_tpu_torch.scene.materials import (
+        Material)
+    from yetanotherconsolegameengine_tpu_torch.scene.tables import (
+        SceneBuilder)
+    lit = many_lights_scene(SceneBuilder, Material)
+    assert int(lit.lights.mask.sum()) == N_LIGHTS
+    assert trace_kernel.scene_fits(lit, cfg), "10 lights do not fit K2"
+    packed = trace_kernel.pack_scene(lit.to(dev))
+    params, frames = trace_inputs(packed.scene, HI_W, HI_H, TRACE_FRAME,
+                                  dev)
+    before = kernels.LAUNCHES["trace"]
+    got = trace_kernel.trace_planes(packed, params, frames, 0, HI_W, HI_H,
+                                    cfg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["trace"] == before + 1
+    lit_err = trace_contract(_np(got), _np(trace_kernel.trace_planes_plain(
+        packed.scene, params[0], TRACE_FRAME, HI_W, HI_H, cfg)))
+    lit_frame, _ = renderer_contract(lit, FB_W, FB_H, dev)
+    print(f"phase 24a {card} open checks: mirror_spheres {DRAGON_W}x"
+          f"{DRAGON_H} ss=2, kernel vs plain renderer over 4 frames "
+          f"{json.dumps(ss2_err)}; {N_LIGHTS}-light room through the trace "
+          f"kernel vs plain at {HI_W}x{HI_H} {json.dumps(lit_err)}, kernel "
+          f"vs plain renderer at {FB_W}x{FB_H} {json.dumps(lit_frame)}",
+          flush=True)
+
+    from yetanotherconsolegameengine_tpu_torch import bench_suite
+    by_row = {}
+    for name, label, build, w, h, kw in bench_suite.STATIC_ROWS[:5]:
+        scene = build()
+        fits = trace_kernel.scene_fits(scene, cfg)
+        assert fits or name not in ("cornell", "voxel_test"), name
+        if fits:
+            err = row_kernels_contract(scene, w, h, kw.get("ss", 1), dev, cfg)
+            print(f"phase 24b {card} {name}: trace and post kernels vs plain "
+                  f"at the row's own size {json.dumps(err)}", flush=True)
+        row, launches = captured_row(lambda: bench_suite.bench_scene(
+            label, scene, w, h, device=dev, **dict(kw, batch=SUITE_BATCH)))
+        print(f"phase 24b {card} {json.dumps(row)}", flush=True)
+        for k in ("fps", "mrays_per_s", "interactive_fps",
+                  "batched_interactive_fps_k8", "ms_per_frame",
+                  "host_ms_per_frame"):
+            assert math.isfinite(row[k]) and row[k] > 0, (k, row)
+        want = ["post", "trace"] if fits else ["post"]
+        assert row["kernels"] == want, (row, want)
+        by_row[label] = launches
+    row, _ = captured_row(lambda: bench_suite.bench_lbvh_rebuild(device=dev))
+    print(f"phase 24b {card} {json.dumps(row)}", flush=True)
+    assert math.isfinite(row["ms"]) and row["ms"] > 0, row
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "yetanotherconsolegameengine_tpu_torch.bench"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["unit"] == "Mray/s" and math.isfinite(line["value"]) \
+        and line["value"] > 0, line
+    print(f"phase 24c {card} python -m "
+          f"yetanotherconsolegameengine_tpu_torch.bench: {json.dumps(line)}; "
+          f"phase 24 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
@@ -1522,6 +1668,9 @@ def main() -> int:
     # ---- 23. multi-device row sharding -------------------------------------
     shard = sharding_phases(dev, card, packs, post_in, dragon, cfg)
 
+    # ---- 24. the suite's rows on the card ---------------------------------
+    suite = suite_phase(dev, card, cfg)
+
     def sharded(kernel):
         """Launches of ``kernel`` summed over the ranks of each sharded
         path that takes it."""
@@ -1550,7 +1699,9 @@ def main() -> int:
                               "voxel_test": room_run["launches"]["trace"],
                               **{k: v["trace"]
                                  for k, v in shell_launches.items()},
-                              **sharded("trace")},
+                              **sharded("trace"),
+                              **{f"suite {k}": v["trace"]
+                                 for k, v in suite.items()}},
          "band_ms": shard["timing"]["k2_band_ms"],
          "band_bound_ms": shard["timing"]["k2_band_bound_ms"],
          "demo_random": {"ms": demo_k2, "plain_ms": demo_k2p,
@@ -1578,7 +1729,9 @@ def main() -> int:
                                  for k, v in dyn_runs.items()},
                               **{k: v["post"]
                                  for k, v in shell_launches.items()},
-                              **sharded("post")},
+                              **sharded("post"),
+                              **{f"suite {k}": v["post"]
+                                 for k, v in suite.items()}},
          "band": {"a_ms": shard["timing"]["k1_band_a_ms"],
                   "b_ms": shard["timing"]["k1_band_b_ms"],
                   "a_bound_ms": shard["timing"]["k1_band_a_bound_ms"],

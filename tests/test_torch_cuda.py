@@ -619,3 +619,35 @@ def test_sharded_frames_on_the_card_match_the_unsharded_frame(dev):
     for rank in res:
         assert rank["launches"]["cornell"]["trace"] == 4
         assert rank["launches"]["cornell"]["post"] == 8
+
+
+def test_ss2_frame_on_the_kernels_matches_plain(dev):
+    """mirror_spheres at 240x135 cells with ss=2 (480x540 traced pixels,
+    the post's tail in torch on the averaged cells): kernel vs plain
+    renderer over 4 frames, both kernels launched every frame."""
+    from chip_smoke import renderer_contract
+    kernels.reset_launches()
+    renderer_contract(SCENE_BUILDERS["mirror_spheres"](), 240, 135, dev,
+                      ss=2)
+    assert kernels.LAUNCHES["trace"] == 4 and kernels.LAUNCHES["post"] == 4
+
+
+def test_trace_kernel_matches_plain_with_ten_lights(dev):
+    """A room of 10 lights (the JAX megakernel takes 8) fits the trace
+    kernel, which matches its plain version; so do the renderers."""
+    from chip_smoke import many_lights_scene, renderer_contract
+    from yetanotherconsolegameengine_tpu_torch.scene.materials import (
+        Material)
+    from yetanotherconsolegameengine_tpu_torch.scene.tables import (
+        SceneBuilder)
+    scene = many_lights_scene(SceneBuilder, Material)
+    assert int(scene.lights.mask.sum()) == 10
+    assert trace_kernel.scene_fits(scene)
+    packed = trace_kernel.pack_scene(scene.to(dev))
+    before = kernels.LAUNCHES["trace"]
+    got = _trace(packed, 3, dev)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["trace"] == before + 1
+    trace_contract(got.cpu().numpy(),
+                   _trace(packed, 3, dev, plain=True).cpu().numpy())
+    renderer_contract(scene, 48, 28, dev, frames=2)

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import trace_contract
+from chip_smoke import many_lights_scene, trace_contract
 from yetanotherconsolegameengine_tpu.config import DEFAULT_CONFIG as JCFG
 from yetanotherconsolegameengine_tpu.core import sampler as jsampler
 from yetanotherconsolegameengine_tpu.core.camera import make_jittered_rays
@@ -19,11 +19,14 @@ from yetanotherconsolegameengine_tpu.ops import trace as jtrace
 from yetanotherconsolegameengine_tpu.ops.pallas_trace import (
     snapshot_scene, trace_all_pallas)
 from yetanotherconsolegameengine_tpu.scene import builders as jbuilders
+from yetanotherconsolegameengine_tpu.scene import materials as jmaterials
+from yetanotherconsolegameengine_tpu.scene import tables as jtables
 from yetanotherconsolegameengine_tpu_torch.config import DEFAULT_CONFIG
 from yetanotherconsolegameengine_tpu_torch.core import u64
 from yetanotherconsolegameengine_tpu_torch.core.camera import ray_params
 from yetanotherconsolegameengine_tpu_torch.ops import trace, trace_kernel
-from yetanotherconsolegameengine_tpu_torch.scene import builders
+from yetanotherconsolegameengine_tpu_torch.scene import (builders, materials,
+                                                        tables)
 
 # The suite runs several xdist workers beside JAX's own thread pools;
 # torch's per-process intra-op pool would oversubscribe the cores.
@@ -60,12 +63,24 @@ def test_plain_trace_kernel_matches_pallas_megakernel():
     trace_contract(got.numpy(), _planes(want))
 
 
+def _scenes(name):
+    """(JAX scene, port scene) of a builder's name, or of "many_lights":
+    ``chip_smoke.many_lights_scene``'s room of 10 lights, which the JAX
+    package traces on its wavefront (the megakernel takes 8) and the port
+    on its trace kernel."""
+    if name == "many_lights":
+        return (many_lights_scene(jtables.SceneBuilder, jmaterials.Material),
+                many_lights_scene(tables.SceneBuilder, materials.Material))
+    return jbuilders.SCENE_BUILDERS[name](), builders.SCENE_BUILDERS[name]()
+
+
 @pytest.mark.parametrize("name,binary", [("cornell", False), ("glass", False),
                                          ("mirror_spheres", False),
-                                         ("glass", True)])
+                                         ("glass", True),
+                                         ("many_lights", False)])
 def test_trace_all_matches_xla_wavefront(name, binary):
-    jsc = dataclasses.replace(jbuilders.SCENE_BUILDERS[name](),
-                              binary_shadows=binary)
+    jsc, psc = (dataclasses.replace(sc, binary_shadows=binary)
+                for sc in _scenes(name))
     o, d = make_jittered_rays(jsc.default_pose, W, H,
                               jnp.asarray(FRAME, jnp.int32))
     px = jnp.broadcast_to(jnp.arange(W, dtype=jnp.uint32)[None], (H, W))
@@ -79,14 +94,15 @@ def test_trace_all_matches_xla_wavefront(name, binary):
     lo = np.asarray(seed[1]).astype(np.int64).reshape(-1)
     rng = torch.from_numpy((hi << 32) | lo)
     assert (u64.hi32(rng).numpy() == hi).all()
-    psc = dataclasses.replace(builders.SCENE_BUILDERS[name](),
-                              binary_shadows=binary)
     got = trace.trace_all(psc,
                           torch.from_numpy(np.array(o).reshape(-1, 3)),
                           torch.from_numpy(np.array(d).reshape(-1, 3)),
                           rng, DEFAULT_CONFIG)
     assert int(got.rays_traced) == int(want.rays_traced)
     trace_contract(_planes(got), _planes(want))
+    if name == "many_lights":
+        assert int(psc.lights.mask.sum()) == 10
+        assert trace_kernel.scene_fits(psc, DEFAULT_CONFIG)
 
 
 def test_stack_clamp_is_exact(monkeypatch):

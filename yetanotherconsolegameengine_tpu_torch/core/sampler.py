@@ -46,6 +46,16 @@ def bayer_base(px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
     return (v.to(torch.float32) + 0.5) * (1.0 / (BLUE_TILE * BLUE_TILE))
 
 
+def blue_noise(px: torch.Tensor, py: torch.Tensor, frame_idx,
+               channel: int) -> torch.Tensor:
+    """Ordered-dither sample in [0,1) at integer pixel coords: the Bayer
+    tile value rotated per frame by R2 (``channel`` 0: x, else y),
+    fract-wrapped."""
+    c = R2_X if channel == 0 else R2_Y
+    f = torch.as_tensor(frame_idx, device=px.device).to(torch.float32)
+    return frac(bayer_base(px, py) + frac((f + 1.0) * c))
+
+
 def per_frame_seed(px: torch.Tensor, py: torch.Tensor, frame_idx,
                    salt: int) -> torch.Tensor:
     """Per-pixel u64 seed (RaytraceSampler.PerFrameSeed with jx = jy = 0).

@@ -1,8 +1,9 @@
-"""ANSI-256 color quantization.
+"""ANSI-256 and 16-color console quantization.
 
-Port of ``yetanotherconsolegameengine_tpu/ops/ansi.py::rgb_to_ansi256``
+Port of ``yetanotherconsolegameengine_tpu/ops/ansi.py``: ``rgb_to_ansi256``
 with the xterm 6-level cube and 24-step gray ramp, the chroma gate and the
-+64 gray penalty.
++64 gray penalty; ``rgb_to_console16``, the nearest color of the 16-color
+console palette.
 """
 
 from __future__ import annotations
@@ -12,6 +13,15 @@ import torch
 
 CUBE_SRGB = np.array([0, 95, 135, 175, 215, 255], np.float32)
 GRAY_SRGB = np.array([8 + 10 * i for i in range(24)], np.float32)
+
+# The 16-color console palette (Renderer/Chexel.cs of the C# original).
+PALETTE16 = np.array([
+    [0.00, 0.00, 0.00], [0.00, 0.00, 0.50], [0.00, 0.50, 0.00],
+    [0.00, 0.50, 0.50], [0.50, 0.00, 0.00], [0.50, 0.00, 0.50],
+    [0.50, 0.50, 0.00], [0.75, 0.75, 0.75], [0.50, 0.50, 0.50],
+    [0.00, 0.00, 1.00], [0.00, 1.00, 0.00], [0.00, 1.00, 1.00],
+    [1.00, 0.00, 0.00], [1.00, 0.00, 1.00], [1.00, 1.00, 0.00],
+    [1.00, 1.00, 1.00]], np.float32)
 
 
 def linear_to_srgb8(c):
@@ -46,3 +56,11 @@ def rgb_to_ansi256(rgb):
     d_gray = (r - gray_v) ** 2 + (g - gray_v) ** 2 + (b - gray_v) ** 2 + 64.0
     use_gray = (chroma <= 18.0) & (d_gray < d_cube)
     return torch.where(use_gray, 232 + gray_idx, idx_cube).to(torch.int32)
+
+
+def rgb_to_console16(rgb):
+    """(..., 3) RGB -> (...,) int32 index of the nearest palette color (the
+    first one on a tie)."""
+    pal = torch.from_numpy(PALETTE16).to(rgb.device)
+    d = ((rgb[..., None, :] - pal) ** 2).sum(dim=-1)
+    return torch.argmin(d, dim=-1).to(torch.int32)

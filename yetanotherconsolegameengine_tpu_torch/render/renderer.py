@@ -383,6 +383,10 @@ class RaytraceRenderer:
         self.cam_pos = list(pos)
         self.yaw, self.pitch = float(yaw), float(pitch)
 
+    def set_fov(self, fov_deg: float):
+        """The vertical field of view, in degrees, of the next frames."""
+        self.fov_deg = float(fov_deg)
+
     def resize(self, fb_w: int, fb_h: int, ss: Optional[int] = None):
         if ss is not None:
             self.ss = max(1, ss)

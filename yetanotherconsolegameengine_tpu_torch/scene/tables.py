@@ -424,6 +424,13 @@ class SceneBuilder:
         self.textures.append(np.asarray(image, np.float32))
         return len(self.textures) - 1
 
+    def add_texture_file(self, path: str) -> int:
+        """Load an image file as a texture, sRGB-decoded to linear (needs
+        PIL)."""
+        from PIL import Image
+        img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+        return self.add_texture(img ** 2.2)
+
     def add_video_texture(self, reader) -> int:
         """Bind a frame reader (``video/readers.py``) to a texture slot that
         the renderer refreshes from it; the slot starts with the reader's

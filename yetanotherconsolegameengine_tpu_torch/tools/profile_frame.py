@@ -2,11 +2,13 @@
 
     python3 -m yetanotherconsolegameengine_tpu_torch.tools.profile_frame \
         [--scene dragon] [--size 240x135] [--wall-frames 20] [--prof-frames 5]
+        [--ss 1]
 
 Renders a scene of ``SCENE_BUILDERS`` (by default the dragon at 240x135
-cells; ss=1, default ``RenderConfig``), or with ``--scene minecraft_like``
-the default streamed island (``world/volume_scene.py``, settled, one
-update, seen from 6 above the spawn at pitch -0.35) and with
+cells; ss=1 unless ``--ss`` says otherwise, default ``RenderConfig``), or
+with ``--scene minecraft_like`` the default streamed island
+(``world/volume_scene.py``, settled, one update, seen from 6 above the
+spawn at pitch -0.35) and with
 ``--scene minecraft_like_dda`` the same island forced onto the voxel DDA,
 with the kernels (``impl="kernel"``) after three warm-up frames:
 
@@ -31,7 +33,7 @@ with the kernels (``impl="kernel"``) after three warm-up frames:
 The device idle share is 1 - busy / wall, given both for the profiled
 frames' own wall and for step 2's profiler-off wall (device work per frame
 does not depend on the profiler; host time does). Writes
-``chiprun_out/profile_<scene>.txt`` under the working directory; exits
+``chiprun_out/profile_<scene>[_ss<N>].txt`` under the working directory; exits
 non-zero without a CUDA card.
 """
 
@@ -40,11 +42,12 @@ from __future__ import annotations
 import argparse
 import collections
 import os
-import subprocess
 import sys
 import time
 
 import torch
+
+from ..utils.profiling import card_line, timed
 
 # (module attribute, stage label), innermost stages first: an operation
 # counts for the first listed stage whose device range encloses it.
@@ -111,15 +114,11 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+
+    def calls():
+        for _ in range(reps):
+            fn()
+    return timed(calls, reps, "cuda")[0]
 
 
 def device_ms(fn, reps: int, warmup: int = 3):
@@ -263,6 +262,7 @@ def main(argv=None) -> int:
     ap.add_argument("--size", default="240x135", help="cells, WxH")
     ap.add_argument("--wall-frames", type=int, default=20)
     ap.add_argument("--prof-frames", type=int, default=5)
+    ap.add_argument("--ss", type=int, default=1, help="supersampling")
     args = ap.parse_args(argv)
     W, H = map(int, args.size.split("x"))
     if not torch.cuda.is_available():
@@ -277,12 +277,8 @@ def main(argv=None) -> int:
     from ..scene.builders import SCENE_BUILDERS
 
     dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    lines = [f"card: {card}; scene {args.scene} {W}x{H} cells, ss=1, "
-             f"default RenderConfig, impl=kernel"]
+    lines = [f"card: {card_line(dev)}; scene {args.scene} {W}x{H} cells, "
+             f"ss={args.ss}, default RenderConfig, impl=kernel"]
     if args.scene.startswith("minecraft_like"):
         from ..world.volume_scene import build_minecraft_like
         vs = build_minecraft_like(surface_mesh=args.scene == "minecraft_like",
@@ -291,11 +287,13 @@ def main(argv=None) -> int:
             scene = vs.update(1.0 / 30.0)
         finally:
             vs.manager.shutdown()
-        r = RaytraceRenderer(scene, W, H, device=dev, impl="kernel")
+        r = RaytraceRenderer(scene, W, H, args.ss, device=dev,
+                             impl="kernel")
         r.set_camera((vs.pos[0], vs.pos[1] + 6.0, vs.pos[2]), 0.0, -0.35)
     else:
         scene = SCENE_BUILDERS[args.scene]().to(dev)
-        r = RaytraceRenderer(scene, W, H, device=dev, impl="kernel")
+        r = RaytraceRenderer(scene, W, H, args.ss, device=dev,
+                             impl="kernel")
     r.render_many(3)
     torch.cuda.synchronize()
 
@@ -307,19 +305,11 @@ def main(argv=None) -> int:
     kernels.reset_launches()
     mesh_bvh.STATS.clear()
     dda.STATS.clear()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    start.record()
-    _, out = r.render_many(n)
-    stop.record()
-    torch.cuda.synchronize()
-    wall_off = (time.perf_counter() - t0) * 1e3 / n
+    ev_ms, wall_off, (_, out) = timed(lambda: r.render_many(n), n, dev)
     launches = {k: v / n for k, v in kernels.LAUNCHES.items()}
     lines.append(
         f"profiler off, {n} frames: {wall_off:.4f} ms/frame by host clock, "
-        f"{start.elapsed_time(stop) / n:.4f} ms/frame by CUDA events; "
+        f"{ev_ms:.4f} ms/frame by CUDA events; "
         f"{int(out.rays_traced)} rays/frame (last frame); kernel wrapper "
         f"launches per frame {launches}")
     for label, mod in (("BVH walk", mesh_bvh), ("voxel DDA", dda)):
@@ -388,7 +378,8 @@ def main(argv=None) -> int:
 
     text = "\n".join(lines)
     os.makedirs(OUT, exist_ok=True)
-    with open(os.path.join(OUT, f"profile_{args.scene}.txt"), "w") as f:
+    tag = "" if args.ss == 1 else f"_ss{args.ss}"
+    with open(os.path.join(OUT, f"profile_{args.scene}{tag}.txt"), "w") as f:
         f.write(text + "\n")
     print(text)
     return 0

@@ -3,14 +3,17 @@
 Port of ``yetanotherconsolegameengine_tpu/utils/profiling.py``:
 ``device_trace`` records a ``torch.profiler`` trace (host operations, and
 the card's kernels and copies when there is a card) and writes it as a
-Chrome trace into ``log_dir``; ``FrameStats`` (copied) is the rolling
-frame-time aggregator behind the HUD line.
+Chrome trace into ``log_dir``; ``timed`` times one call by CUDA events and
+the host clock over the same window; ``card_line`` names the card and its
+power limit for a measurement's record; ``FrameStats`` (copied) is the
+rolling frame-time aggregator behind the HUD line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import tempfile
 import time
 from collections import deque
@@ -38,6 +41,44 @@ def device_trace(log_dir: Optional[str] = None):
         prof.stop()
         os.makedirs(log_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them (the
+    device's name where it is absent); "cpu" for the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.CalledProcessError):
+        return torch.cuda.get_device_name(dev)
+
+
+def timed(fn, n: int, device):
+    """Call ``fn()`` once between two synchronisations of ``device``.
+    Returns (ms per unit of the ``n`` units of work it does, by CUDA events
+    on a CUDA device and by the host clock elsewhere; ms per unit by the
+    host clock; what ``fn`` returned)."""
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    sync()
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    if cuda:
+        start.record()
+    res = fn()
+    if cuda:
+        stop.record()
+    sync()
+    host = (time.perf_counter() - t0) * 1e3 / n
+    return (start.elapsed_time(stop) / n if cuda else host), host, res
 
 
 class FrameStats:
