@@ -16,7 +16,11 @@ Phases (one line each; any failure raises and exits non-zero):
      non-zero, then each kernel's time per call at the frame's shapes: as
      device time (the mean duration of its launches, from torch.profiler)
      and by CUDA events over back-to-back calls, which the wrapper's host
-     time can pace, beside its plain version and its least time on the card
+     time can pace, beside its plain version and its least time on the
+     card; (6d) the post kernel under the configurations whose phases read
+     their taps from global memory (a fifth a-trous pass; a TAA clamp
+     radius of 77) against its plain version at 160x180 within phase 4's
+     contract, then its device and CUDA-event times, least time and share
   7. the cluster kernel (K3) vs its plain version on the dragon's sweeps of
      frame 3 at 240x270 pixels: every sweep of the frame (the fine set's
      primary rays, the shadow set's light-major any-hit shadow rays, the
@@ -99,7 +103,15 @@ Phases (one line each; any failure raises and exits non-zero):
      48x28 on 4 ranks (14-row bands, halos over several owners), every
      rank's launch counts; (d) Cornell 160x88 ms/frame by CUDA events at 1,
      2 and 4 ranks on the one card (the cost of the exchange and the split
-     post where ranks share a card, not a scale-out figure)
+     post where ranks share a card, not a scale-out figure); (e) the scenes
+     of (c) at world 1 over the group ``make_group`` makes by default on
+     CUDA (NCCL, the exchange on the card, nothing staged; no fallback;
+     the teapot in 2 frames): every frame bit-equal to the world-1 gloo
+     frame and held to (c)'s contract against the unsharded frame, the
+     kernels launched; a scene of every tensor dtype of the shipped scenes
+     through ``broadcast_scene``, exact; ``combine``'s partial against the
+     unsharded exposure; Cornell 160x88 ms/frame over NCCL and gloo in
+     turns, beside the unsharded ``render()`` a frame
  24. the benchmark suite (``…_torch/bench_suite.py``) on the card: (a)
      ``mirror_spheres`` at 240x135 with ss=2 (480x540 traced pixels),
      kernel vs plain renderer over 4 frames, and a room lit by 10 lights
@@ -116,7 +128,8 @@ Phases (one line each; any failure raises and exits non-zero):
 Then a JSON line of per-kernel results (``ms`` is the device time,
 ``event_ms`` the CUDA-event time; ``launches`` counts Cornell's timed run for
 K1 and K2 and the dragon's for K3, ``launches_by_path`` every timed run,
-the shell's runs and the suite's rows),
+the shell's runs, the sharded runs and the suite's rows; K1's
+``global_memory`` holds phase 6d),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -181,6 +194,11 @@ SHARD_DRAGON_TIMED = 5
 # 4 ranks, and the timed Cornell frames at 1, 2 and 4 ranks, 160x88.
 SHARD_DRAGON_H = 136
 SHARD_FB_H = 88
+# Phase 23e renders 23c's scenes at world 1 twice (NCCL and gloo) with
+# 23c's frame counts, but the teapot's in two frames (the second reads the
+# first's history through the exchange): its BVH walk takes ~4 s a frame
+# even at 48x28, and the phase is kept well under a minute.
+WORLD1_FRAMES = {"teapot": 2}
 DDA_ISLAND_FRAMES = 6           # the forced-DDA island
 DYNAMIC_TIMES = (0.0, 1.3, 2.0)
 SPIN_FRAMES = 4                 # bench_suite's "Spinning mesh" row, 160x90
@@ -197,12 +215,31 @@ N_LIGHTS = 10                   # above the JAX megakernel's limit of 8
 # tools/profile_frame.py::roofline (K3's work: k3_work there).
 K2_OPS = 24
 K1_TAA_OPS, K1_PASS_OPS, K1_LOG_OPS, K1_TAIL_OPS = 100, 750, 10, 50
-K1_OPS = K1_TAA_OPS + 3 * K1_PASS_OPS + K1_LOG_OPS + K1_TAIL_OPS
+# Of the TAA's ~100, 3 per tap of the 3x3 clamp window (the sky test, the
+# min and the max); a clamp radius r has (2r + 1)^2 taps.
+K1_CLAMP_TAP_OPS = 3
+# K1's configurations whose phases read their taps from global memory, not
+# from shared memory (tests/test_torch_cuda.py::
+# test_post_kernel_wide_halos_match_plain): a fifth a-trous pass (+-32
+# halo) and a TAA clamp radius of 77.
+K1_GLOBAL = {"five_passes": {"atrous_iterations": 5},
+             "clamp_radius_77": {"taa_clamp_radius": 77}}
 # 4-byte planes K1 must read and write once per pixel: of the G-buffer the
 # 11 it reads (radiance 3, sky, albedo 3, normal 3, depth; not the ray
 # count), of the previous frame's depth, normal and sky (5), the history's
 # RGB (3); out 6 RGB planes and the ANSI index plane.
 K1_PLANES = 11 + 5 + 3 + 7
+
+
+def k1_ops(cfg) -> int:
+    """fp32 operations K1 does per pixel under ``cfg``: the TAA with its
+    clamp window, every a-trous pass, the exposure sample and the tail.
+    The window and the passes change what K1 computes, not what it must
+    read and write once: its bytes stay ``K1_PLANES`` a pixel."""
+    taps = (2 * max(0, cfg.taa_clamp_radius) + 1) ** 2
+    return (K1_TAA_OPS + (taps - 9) * K1_CLAMP_TAP_OPS
+            + max(1, cfg.atrous_iterations) * K1_PASS_OPS + K1_LOG_OPS
+            + K1_TAIL_OPS)
 
 
 def trace_contract(got: np.ndarray, ref: np.ndarray) -> dict:
@@ -808,6 +845,39 @@ def video_sync_phase(dev, card) -> None:
           f"equal over 4 frames", flush=True)
 
 
+def k1_global_phase(dev, card, inputs, cfg, shared: dict) -> dict:
+    """Phase 6d: K1 under each configuration of ``K1_GLOBAL`` on the post
+    ``inputs`` at 160x180, held to phase 4's contract against
+    ``post_plain``, then timed as device time and by CUDA events beside
+    the shared-memory configuration's ``shared`` times (phase 6c), with its
+    least time. Returns each configuration's numbers."""
+    h, w = inputs[0].shape[1:]
+    res = {}
+    for name, change in K1_GLOBAL.items():
+        c = dataclasses.replace(cfg, **change)
+
+        def k1():
+            return post_kernel.post(*inputs, c, 2, True)
+        got = k1()
+        torch.cuda.synchronize()
+        plain_ms, _, ref = timed(lambda: post_kernel.post_plain(
+            *inputs, c, 2, True), 1, dev)
+        err = post_contract([_np(x) for x in got], [_np(x) for x in ref])
+        ms, ev = kernel_ms(k1, 100), cuda_ms(k1, 100)
+        bound = roofline(w * h * k1_ops(c), K1_PLANES * w * h * 4)
+        res[name] = {"ms": ms, "event_ms": ev, "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "share": bound[0] / ms, "ops_per_pixel": k1_ops(c),
+                     "max_abs_err": err["rgb"], "err": err}
+    print(f"phase 6d {card} post kernel's global-memory phases at {w}x{h} "
+          f"vs plain (phase 4's contract), ms per call (device time | CUDA "
+          f"events), least time and share: {json.dumps(res)}; beside the "
+          f"shared-memory configuration (6c) {shared['ms']:.4f} | "
+          f"{shared['event_ms']:.4f}, bound {shared['bound_ms']:.5f}",
+          flush=True)
+    return res
+
+
 def check_launched(counts: dict, keys, what: str) -> None:
     """Each kernel of ``keys`` launched at least once in ``counts``."""
     for k in keys:
@@ -1066,7 +1136,167 @@ def sharding_phases(dev, card, packs, post_in, dragon, cfg) -> dict:
           f"ms/frame", flush=True)
     return {"timing": timing, "launches": launches,
             "ms": {n: max(v) for n, v in per_rank.items()},
-            "dragon_ms": max(dragon_ms)}
+            "dragon_ms": max(dragon_ms),
+            "jobs": {j.name: j for j in jobs2 + jobs4}, "want": want,
+            "need": need}
+
+
+def scene_tensors(v, path: str = "") -> dict:
+    """{field path: tensor} of every tensor in a scene, in field order."""
+    if isinstance(v, torch.Tensor):
+        return {path: v}
+    out = {}
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        for f in dataclasses.fields(v):
+            out.update(scene_tensors(getattr(v, f.name),
+                                     f"{path}.{f.name}".lstrip(".")))
+    return out
+
+
+def every_dtype_scene(island, dev):
+    """The island's scene (its surface cluster tables) carrying also the
+    texture bank of ``texture_test``, the teapot's LBVH rows and soup and
+    the voxel grid of ``voxel_test``'s DDA form, on ``dev``: every tensor
+    dtype a shipped scene holds, in one scene."""
+    from yetanotherconsolegameengine_tpu_torch.scene.voxel_scenes import (
+        build_voxel_test_scene)
+    tex = SCENE_BUILDERS["texture_test"]().to(dev)
+    teapot = SCENE_BUILDERS["teapot"]().to(dev)
+    vox = build_voxel_test_scene(merge="dda").to(dev)
+    return dataclasses.replace(island.to(dev), textures=tex.textures,
+                               mesh=teapot.mesh, mesh_soup=teapot.mesh_soup,
+                               voxels=vox.voxels)
+
+
+def scene_round_trip(group, scene) -> dict:
+    """``broadcast_scene`` of ``scene`` from rank 0 of ``group``: every
+    tensor back on the group's device, equal, of the same dtype and shape.
+    Returns the tensors, bytes and dtypes sent."""
+    from yetanotherconsolegameengine_tpu_torch.parallel import sharding
+    got = sharding.broadcast_scene(group, scene)
+    sent, back = scene_tensors(scene), scene_tensors(got)
+    assert list(sent) == list(back), "scene layout changed in the broadcast"
+    for path, t in sent.items():
+        g = back[path]
+        assert g.dtype == t.dtype and g.shape == t.shape, path
+        assert g.device == group.device, f"{path} on {g.device}"
+        assert torch.equal(g, t), f"{path} differs after the broadcast"
+    return {"tensors": len(sent),
+            "bytes": sum(t.numel() * t.element_size() for t in sent.values()),
+            "dtypes": sorted({str(t.dtype).replace("torch.", "")
+                              for t in sent.values()})}
+
+
+def combine_check(group, inputs, cfg) -> dict:
+    """``RowGroup.combine`` at world 1 on K1's band launch A over the
+    whole frame of post ``inputs``: the combined partial is the band's
+    partial bit for bit, the rays its own, and the exposure launch B
+    derives from it holds phase 4's contract against the unsharded
+    K1's."""
+    cur, prev, hist, valid, reset, ae = inputs
+    h = cur.shape[1]
+    _, denoised, part = post_kernel.post_band(cur, prev, hist, valid, reset,
+                                              cfg, 2, 0, (0, h))
+    rays = cur[11].to(torch.int64).sum()
+    total, got_rays = group.combine(part, rays)
+    want_total = post_kernel.combine_partials(part[None])
+    _, _, band_ae = post_kernel.post_band_tail(denoised, total, ae, cfg, True)
+    *_, full_ae = post_kernel.post(*inputs, cfg, 2, True)
+    assert torch.equal(total, want_total), \
+        f"combined partial {total.tolist()} != {want_total.tolist()}"
+    assert int(got_rays) == int(rays), "combined rays"
+    err = abs(float(band_ae) - float(full_ae))
+    assert err <= 1e-5, f"exposure {float(band_ae)} vs {float(full_ae)}"
+    return {"partial": total.tolist(), "exposure": float(band_ae),
+            "unsharded_exposure": float(full_ae), "exposure_err": err}
+
+
+def world1_run(backend, jobs, cfg, extra=None) -> dict:
+    """``frames_job`` of ``jobs`` on a world-1 group over a FileStore in a
+    temporary directory, then ``extra(group)`` when given: ``backend``
+    None joins through ``make_group``'s default. The group is destroyed
+    on the way out."""
+    from yetanotherconsolegameengine_tpu_torch.parallel import sharding
+    with tempfile.TemporaryDirectory() as tmp:
+        store = torch.distributed.FileStore(os.path.join(tmp, "store"), 1)
+        group = (sharding.make_group(0, 1, store, device="cuda")
+                 if backend is None else
+                 sharding.make_group(0, 1, store, backend, "cuda"))
+        try:
+            res = sharding.frames_job(group, jobs, cfg)
+            res["group"] = {"backend": group.backend,
+                            "exchange": str(group.exchange_device),
+                            "staged": group.staged}
+            if extra is not None:
+                res["extra"] = extra(group)
+        finally:
+            torch.distributed.destroy_process_group()
+    return res
+
+
+def nccl_phase(dev, card, shard, dragon, island, inputs, cfg) -> dict:
+    """Phase 23e: phase 23c's sharded frames at world 1 over the group
+    ``make_group`` makes by default on CUDA (NCCL, the exchange on the
+    card): each frame bit-equal to the same frames over a world-1 gloo
+    group and held to 23c's contract against the unsharded frame, the
+    kernels launched as 23c counts them; a scene of every dtype through
+    ``broadcast_scene``; ``combine`` against the unsharded exposure;
+    Cornell 160x88 ms/frame over NCCL and gloo, in turns (gloo, NCCL,
+    NCCL, gloo), beside the unsharded ``render()`` of one frame a call.
+    No fallback: an NCCL failure raises. Returns the runs' launches by
+    path and the times."""
+    t0 = time.perf_counter()
+    jobs, want = [], dict(shard["want"])
+    for name, job in shard["jobs"].items():
+        if name == "dragon":
+            job = dataclasses.replace(job, build=lambda: dragon, timed=0)
+        if name in WORLD1_FRAMES:
+            job = dataclasses.replace(job, n_frames=WORLD1_FRAMES[name])
+            want[name] = unsharded(job.build(), job.fb_w, job.fb_h, dev,
+                                   job.n_frames, job.ss)
+        jobs.append(job)
+    timed_job = [shard["jobs"]["cornell88"]]
+    r = RaytraceRenderer(SCENE_BUILDERS["cornell"](), FB_W, SHARD_FB_H,
+                         device=dev)
+    one_ms = cuda_ms(r.render, SHARD_TIMED)
+    gloo = world1_run("gloo", jobs, cfg)
+    nccl = world1_run(None, jobs, cfg, lambda g: {
+        "round_trip": scene_round_trip(g, every_dtype_scene(island, dev)),
+        "combine": combine_check(g, inputs, cfg)})
+    nccl2 = world1_run(None, timed_job, cfg)
+    gloo2 = world1_run("gloo", timed_job, cfg)
+    took = time.perf_counter() - t0
+    assert nccl["group"] == {"backend": "nccl", "exchange": str(dev),
+                             "staged": False}, nccl["group"]
+    assert gloo["group"]["backend"] == "gloo" and gloo["group"]["staged"]
+    contract, launches = {}, {}
+    for name, frame in nccl["frames"].items():
+        for k, a in frame.items():
+            assert np.array_equal(a, gloo["frames"][name][k]), \
+                f"{name} {k}: NCCL frame differs from the gloo frame"
+        contract[name] = frame_diff(frame, want[name])
+        check_same_frame(contract[name], name.startswith("cornell"),
+                         f"{name} 1 rank nccl")
+        check_launched(nccl["launches"][name], shard["need"][name],
+                       f"{name} 1 rank nccl")
+        launches[f"sharded_{name}_1rank_nccl"] = [nccl["launches"][name]]
+    ms = {"nccl": [nccl["ms"]["cornell88"], nccl2["ms"]["cornell88"]],
+          "gloo": [gloo["ms"]["cornell88"], gloo2["ms"]["cornell88"]]}
+    print(f"phase 23e {card} world 1 over make_group's default on CUDA: "
+          f"{json.dumps(nccl['group'])} (gloo: {json.dumps(gloo['group'])});"
+          f" phase 23c's scenes, each NCCL frame bit-equal to the gloo "
+          f"frame; vs the unsharded frame {json.dumps(contract)}; launches "
+          f"(trace, post, clusters) "
+          f"{json.dumps({k: list(nccl['launches'][k].values()) for k in nccl['launches']})}"
+          f"; broadcast_scene round trip exact "
+          f"{json.dumps(nccl['extra']['round_trip'])}; combine "
+          f"{json.dumps(nccl['extra']['combine'])}; Cornell {FB_W}x"
+          f"{SHARD_FB_H} ss=1 ms/frame by CUDA events over {SHARD_TIMED} "
+          f"frames, in turns gloo, nccl, nccl, gloo: {json.dumps(ms)}, "
+          f"unsharded render() a frame {one_ms:.4f}; frames "
+          f"{json.dumps({j.name: j.n_frames for j in jobs})}; {took:.1f} s",
+          flush=True)
+    return {"launches": launches, "ms": ms, "unsharded_render_ms": one_ms}
 
 
 def many_lights_scene(SceneBuilder, Material):
@@ -1333,8 +1563,8 @@ def main() -> int:
     k2_bound = roofline(k2_rays * n_prims * K2_OPS,
                         packed.table.numel() * 4 + k2_out.numel() * 4)
     n_pix = HI_W * HI_H
-    k1_bound = roofline(n_pix * K1_OPS, K1_PLANES * n_pix * 4)
-    k1d_bound = roofline(dw * dh * K1_OPS, K1_PLANES * dw * dh * 4)
+    k1_bound = roofline(n_pix * k1_ops(cfg), K1_PLANES * n_pix * 4)
+    k1d_bound = roofline(dw * dh * k1_ops(cfg), K1_PLANES * dw * dh * 4)
     print(f"phase 6c {card} per kernel at {HI_W}x{HI_H} (ms per call: "
           f"device time | CUDA events; share of the bound by device time): "
           f"trace kernel {d_k2:.4f} | {t_k2:.4f} vs plain {t_k2p:.3f} ms, "
@@ -1345,6 +1575,11 @@ def main() -> int:
           f"{k1_bound[0] / d_k1:.2%}; post kernel at {dw}x{dh} {d_k1d:.4f} | "
           f"{t_k1d:.4f}, bound {k1d_bound[0]:.5f} ms by {k1d_bound[1]}, "
           f"share {k1d_bound[0] / d_k1d:.2%}", flush=True)
+
+    # ---- 6d. K1's global-memory phases ------------------------------------
+    k1_global = k1_global_phase(dev, card, inputs, cfg,
+                                {"ms": d_k1, "event_ms": t_k1,
+                                 "bound_ms": k1_bound[0]})
 
     # ---- 7. the cluster kernel vs plain on the dragon's sweeps -----------
     t0 = time.perf_counter()
@@ -1667,6 +1902,9 @@ def main() -> int:
 
     # ---- 23. multi-device row sharding -------------------------------------
     shard = sharding_phases(dev, card, packs, post_in, dragon, cfg)
+    nccl = nccl_phase(dev, card, shard, dragon, isl, post_in[HI_W, HI_H],
+                      cfg)
+    shard["launches"].update(nccl["launches"])
 
     # ---- 24. the suite's rows on the card ---------------------------------
     suite = suite_phase(dev, card, cfg)
@@ -1738,7 +1976,12 @@ def main() -> int:
                   "b_bound_ms": shard["timing"]["k1_band_b_bound_ms"],
                   "rows": shard["timing"]["band_rows"],
                   "extended_rows": shard["timing"]["extended_rows"]},
-         "sharded_cornell_ms_per_frame": shard["ms"]},
+         "sharded_cornell_ms_per_frame": shard["ms"],
+         "world1_cornell_ms_per_frame": dict(
+             nccl["ms"], unsharded_render=nccl["unsharded_render_ms"]),
+         "global_memory": {k: {f: v[f] for f in (
+             "ms", "event_ms", "plain_ms", "bound_ms", "bound_by", "share",
+             "max_abs_err")} for k, v in k1_global.items()}},
         {"name": "clusters", "route": "cuda",
          "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
                    "cluster_kernel.cu",

@@ -651,3 +651,47 @@ def test_trace_kernel_matches_plain_with_ten_lights(dev):
     trace_contract(got.cpu().numpy(),
                    _trace(packed, 3, dev, plain=True).cpu().numpy())
     renderer_contract(scene, 48, 28, dev, frames=2)
+
+
+def test_world_one_nccl_frames_equal_the_gloo_frames(dev, tmp_path):
+    """``make_group``'s default on the card (NCCL, the exchange on the
+    card, nothing staged) at world 1: Cornell and cluster_forced at 48x28
+    over 4 frames bit-equal to the same frames over gloo, K2/K3 and K1
+    launched; a scene of every dtype round-trips through
+    ``broadcast_scene``; ``combine`` returns the band's own partial."""
+    from chip_smoke import (combine_check, every_dtype_scene, post_inputs,
+                            scene_round_trip, world1_run)
+    from yetanotherconsolegameengine_tpu_torch.parallel import sharding
+    from yetanotherconsolegameengine_tpu_torch.world.volume_scene import (
+        build_minecraft_like)
+    from yetanotherconsolegameengine_tpu_torch.world.settings import (
+        WorldConfig)
+    vs = build_minecraft_like(
+        cfg=WorldConfig(chunks_x=2, chunks_y=1, chunks_z=2, chunk_size=16,
+                        view_distance=1, seed=42),
+        world_path=str(tmp_path / "w.vg"), device=dev)
+    try:
+        island = vs.update(1 / 30)
+    finally:
+        vs.manager.shutdown()
+    inputs = post_inputs(trace_kernel.pack_scene(
+        SCENE_BUILDERS["cornell"]().to(dev)), 48, 56, dev)
+    jobs = [sharding.FrameJob("cornell", SCENE_BUILDERS["cornell"], 48, 28,
+                              n_frames=4),
+            sharding.FrameJob("cluster_forced",
+                              FORCED_SCENE_BUILDERS["cluster_forced"], 48,
+                              28, n_frames=4)]
+    gloo = world1_run("gloo", jobs, DEFAULT_CONFIG)
+    nccl = world1_run(None, jobs, DEFAULT_CONFIG, lambda g: (
+        scene_round_trip(g, every_dtype_scene(island, dev)),
+        combine_check(g, inputs, DEFAULT_CONFIG)))
+    assert nccl["group"] == {"backend": "nccl", "exchange": str(dev),
+                             "staged": False}
+    for name, frame in nccl["frames"].items():
+        for k, a in frame.items():
+            np.testing.assert_array_equal(a, gloo["frames"][name][k])
+    assert nccl["launches"]["cornell"]["trace"] == 4
+    assert nccl["launches"]["cluster_forced"]["clusters"] > 0
+    assert all(c["post"] == 8 for c in nccl["launches"].values())
+    assert {"bool", "float32", "int16", "int32"} <= set(
+        nccl["extra"][0]["dtypes"])

@@ -149,3 +149,59 @@ def test_dryrun_and_errors(tmp_path):
         sharding.make_group(0, cards + 1, store, "nccl", "cuda")
     with pytest.raises(ValueError, match="nccl"):
         sharding.make_group(0, 1, store, "nccl", "cpu")
+
+
+def test_exchange_follows_the_backend():
+    """NCCL keeps the exchange on the rank's card and stages nothing; gloo
+    exchanges on the host, staging CUDA tensors through pinned buffers."""
+    card = torch.device("cuda", 0)
+    for dev, backend, exchange, staged in (
+            (card, "nccl", card, False), (card, "gloo", "cpu", True),
+            (torch.device("cpu"), "gloo", "cpu", False)):
+        g = sharding.RowGroup(0, 1, dev, backend)
+        assert g.exchange_device == torch.device(exchange)
+        assert g.staged is staged
+
+
+def test_world_one_default_group_round_trips_every_dtype(tmp_path):
+    """``make_group``'s default on the CPU (gloo, unstaged: the same code
+    path as NCCL's exchange on the card) at world 1: a scene that carries
+    every tensor dtype of the shipped scenes (the island's surface clusters,
+    a texture bank, LBVH rows and soup, a voxel grid) comes back from
+    ``broadcast_scene`` equal, and ``combine`` returns the band's own
+    partial, whose exposure is the unsharded frame's (chip_smoke's phase
+    23e helpers)."""
+    import chip_smoke
+    from yetanotherconsolegameengine_tpu_torch.ops import trace_kernel
+    from yetanotherconsolegameengine_tpu_torch.world.volume_scene import (
+        build_minecraft_like)
+    vs = build_minecraft_like(cfg=TINY, world_path=str(tmp_path / "w.vg"),
+                              device="cpu")
+    try:
+        island = vs.update(1 / 30)
+    finally:
+        vs.manager.shutdown()
+    scene = chip_smoke.every_dtype_scene(island, "cpu")
+    shipped = set()
+    for name, build in SCENE_BUILDERS.items():
+        if name != "dragon":
+            built = build()
+            shipped |= {t.dtype for t in chip_smoke.scene_tensors(
+                getattr(built, "base", built)).values()}
+    assert shipped <= {t.dtype for t in
+                       chip_smoke.scene_tensors(scene).values()}
+    inputs = chip_smoke.post_inputs(
+        trace_kernel.pack_scene(SCENE_BUILDERS["cornell"]()), 32, 24, "cpu")
+    store = torch.distributed.FileStore(str(tmp_path / "store"), 1)
+    group = sharding.make_group(0, 1, store, device="cpu")
+    try:
+        assert (group.backend, group.exchange_device, group.staged) == (
+            "gloo", torch.device("cpu"), False)
+        trip = chip_smoke.scene_round_trip(group, scene)
+        assert {"bool", "float32", "int16", "int32"} <= set(trip["dtypes"])
+        got = chip_smoke.combine_check(group, inputs,
+                                       chip_smoke.DEFAULT_CONFIG)
+        assert got["exposure_err"] <= 1e-5
+    finally:
+        torch.distributed.destroy_process_group()
+

@@ -1,9 +1,13 @@
 """The port's streamed world (world/) against the JAX package's: the copied
 worldgen and VG01 files equal bit for bit, the chunk manager's streaming,
 recentring, cache and window (its encoded cells equal to the JAX
-manager's), and the player physics with the fail-safe teleport. Every
-manager runs its worker threads on a small world and is shut down in a
-``finally``; waits go through ``ensure_all_loaded(timeout=)``."""
+manager's), streaming past a source that fails every other chunk, and
+the player physics with the fail-safe teleport. Every manager runs its
+worker threads on a small world and is shut down in a ``finally``; waits
+go through ``ensure_all_loaded(timeout=)`` or a deadline of the test's
+own."""
+
+import time
 
 import numpy as np
 import pytest
@@ -197,6 +201,39 @@ def test_forced_dda_island_carries_the_window(tmp_path):
             (vs.manager._host > 0).sum())
     finally:
         vs.manager.shutdown()
+
+
+def test_worker_exception_does_not_kill_streaming():
+    """tests/test_failure_modes.py's scenario on the port's manager: a
+    source that raises on every other chunk leaves the desired set
+    unsatisfied, and re-requesting retries the failed chunks until it is
+    loaded, within 30 s."""
+    calls = {"n": 0}
+
+    def flaky_source(cx, cy, cz):
+        calls["n"] += 1
+        if calls["n"] % 2 == 1:  # every other chunk build crashes
+            raise RuntimeError("injected fault")
+        C = TINY.chunk_size
+        blocks = np.ones((C, C, C), np.int32)
+        return blocks, np.zeros_like(blocks)
+
+    mgr = WorldManager(TINY, _lut(), flaky_source, n_workers=2, device="cpu")
+    try:
+        deadline = time.time() + 30.0
+        while time.time() < deadline:
+            mgr.load_chunks_around((16.0, 0.0, 16.0))
+            mgr.drain_ready(max_chunks=64)
+            with mgr._desired_lock:
+                if mgr._desired <= mgr._loaded:
+                    break
+            time.sleep(0.01)
+        with mgr._desired_lock:
+            assert mgr._desired and mgr._desired <= mgr._loaded
+        assert calls["n"] > 4  # retries happened
+    finally:
+        mgr.shutdown()
+    assert not any(w.is_alive() for w in mgr._workers)
 
 
 def test_entry_points_default_to_the_card(tmp_path):

@@ -34,8 +34,9 @@ other, and NCCL with more ranks than cards raises.
 ``dryrun`` spawns ranks with ``torch.multiprocessing`` (a ``FileStore`` in
 a temporary directory: no TCP port) and renders the reference dryrun's
 scenes; ``python -m yetanotherconsolegameengine_tpu_torch.parallel.sharding
---ranks 4 --backend gloo`` runs it on the card, ``--device cpu`` on the
-CPU.
+--ranks 1`` runs it on one card over NCCL (the default on CUDA), ``--ranks
+4 --backend gloo`` on four ranks that share the card, ``--device cpu`` on
+the CPU.
 """
 
 from __future__ import annotations
@@ -114,21 +115,24 @@ class RowGroup:
 
     The backend names the exchange: NCCL's keeps tensors on the card;
     gloo's stages CUDA tensors through pinned host buffers, kept per
-    shape (CPU tensors are already on the host)."""
+    shape (CPU tensors are already on the host). ``exchange_device`` is
+    where the collectives' tensors live, ``staged`` whether CUDA tensors
+    pass through the host on the way."""
 
     def __init__(self, rank: int, world: int, device: torch.device,
                  backend: str):
         self.rank, self.world = rank, world
         self.device, self.backend = device, backend
-        self._staged = backend == "gloo" and device.type == "cuda"
-        self._comm = device if backend == "nccl" else torch.device("cpu")
+        self.staged = backend == "gloo" and device.type == "cuda"
+        self.exchange_device = (device if backend == "nccl"
+                                else torch.device("cpu"))
         self._buffers = {}
 
     def _buffer(self, key: str, shape, dtype) -> torch.Tensor:
         k = (key, tuple(shape), dtype)
         if k not in self._buffers:
             self._buffers[k] = torch.empty(shape, dtype=dtype,
-                                           pin_memory=self._staged)
+                                           pin_memory=self.staged)
         return self._buffers[k]
 
     def gather_rows(self, t: torch.Tensor, rows=None) -> torch.Tensor:
@@ -137,7 +141,7 @@ class RowGroup:
         device."""
         t = t.contiguous()
         shape = (self.world * t.shape[0],) + tuple(t.shape[1:])
-        if self._staged:
+        if self.staged:
             send = self._buffer("send", t.shape, t.dtype)
             send.copy_(t)
             out = self._buffer("gather", shape, t.dtype)
@@ -171,7 +175,7 @@ class RowGroup:
     def broadcast_object(self, obj, src: int = 0):
         """``obj`` of rank ``src`` (pickled) on every rank."""
         box = [obj]
-        dist.broadcast_object_list(box, src, device=self._comm)
+        dist.broadcast_object_list(box, src, device=self.exchange_device)
         return box[0]
 
     def broadcast_tensor(self, t: Optional[torch.Tensor], shape, dtype,
@@ -180,7 +184,8 @@ class RowGroup:
         sent as bytes (gloo takes few dtypes)."""
         nbytes = int(np.prod(shape, dtype=np.int64)) \
             * torch.empty((), dtype=dtype).element_size()
-        buf = torch.empty(nbytes, dtype=torch.uint8, device=self._comm)
+        buf = torch.empty(nbytes, dtype=torch.uint8,
+                          device=self.exchange_device)
         out = buf.view(dtype).reshape(shape)
         if self.rank == src:
             out.copy_(t)
@@ -220,8 +225,11 @@ def make_group(rank: int, world: int, store, backend: Optional[str] = None,
         torch.cuda.set_device(dev)
     else:
         dev = torch.device("cpu")
+    # NCCL binds its communicator to the rank's card at once (and so fails
+    # here, not at the first collective); barrier() then needs no guess.
     dist.init_process_group(backend, store=store, rank=rank,
-                            world_size=world, timeout=TIMEOUT)
+                            world_size=world, timeout=TIMEOUT,
+                            device_id=dev if backend == "nccl" else None)
     return RowGroup(rank, world, dev, backend)
 
 
