@@ -36,31 +36,44 @@ Phases (one line each; any failure raises and exits non-zero):
      its least time on the card
  10. the LBVH built on the card (``ops/lbvh.py``) equals the CPU build for
      ``make_knot`` (3,840 triangles), with its build time on the card
- 11. the BVH walk (``ops/mesh_bvh.py::intersect_mesh``) on the card against
-     the CPU on the bunny's primary rays at 160x180 pixels, with its time,
-     rounds and host waits
+ 11. the BVH walk kernel (``ops/csrc/bvh_kernel.cu`` through
+     ``ops/mesh_bvh.py::intersect_mesh``) against the plain walk on the
+     card, bit for bit (t, n, u, v, mat, hit), at 160x180 rays a case: the
+     bunny's primary rays and bounce rays from their hits, rays at the
+     ``make_knot`` LBVH, ``exhibit_ring``'s primary and bounce rays at its
+     glass hero mesh; then every walk sweep of an ``exhibit_ring`` frame at
+     160x90; the bunny's primary rays against the CPU; per case the
+     kernel's device time and the sweep's CUDA-event time, the work the
+     rays need (node visits, triangle tests, rows read, the most visits of
+     a ray, the share of a warp's visit slots used) and the least time;
+     the plain walk's time on the bunny's primary rays
  12. the ``glass_gem`` and ``texture_test`` goldens on the card (48x28
      cells, 4 frames, kernels), the post kernel launched
  13. the bunny at 160x90 cells, ss=1 (28,800 primary lanes, its LBVH built
      on the card at ``set_scene``): kernel vs plain renderer over 4 frames,
      then the timed ``render_many`` (ms/frame by CUDA events and host
-     clock, Mray/s), whose post kernel launch count must be non-zero; then
+     clock, Mray/s), whose post and walk kernel launch counts must be
+     non-zero; then
      ``demo_random`` at 160x90 (74 spheres in a 128-row table): the trace
      kernel vs its plain version, kernel vs plain renderer, and a timed
      ``render_many`` whose trace and post launch counts must be non-zero
  14. one ``video_texture`` frame on the card: the synthetic reader's newest
      frame written into its slot, TAA reset, the post kernel launched
- 15. the voxel DDA (``ops/dda.py::intersect_voxels``) on the card against
-     the CPU on ``voxel_cave``'s primary rays at 160x180 pixels: equal hits,
-     materials and normals, t bit-equal; ms a sweep, rounds, host waits,
-     and device launches a sweep and a round (torch.profiler)
+ 15. the voxel DDA kernel (``ops/csrc/dda_kernel.cu`` through
+     ``ops/dda.py::intersect_voxels``) against the plain loop on the card,
+     bit for bit, at 160x180 rays a case: ``voxel_cave``'s primary rays and
+     bounce rays from their hits, the primary rays of ``voxel_test``'s DDA
+     form; ``voxel_cave``'s primary rays against the CPU (t bit-equal);
+     per case the kernel's times, the work (rounds, cells read, the most
+     rounds of a ray, the warp share) and the least time; the plain loop's
+     time; then ``voxel_cave`` at 160x90 timed, the DDA kernel launched
  16. the ``voxel_test`` and ``island_surface`` goldens on the card (48x28
      cells, 4 frames): ``voxel_test`` through the trace kernel, the island
      through the cluster kernel, held against the plain renderer on the
      card and reported against the golden (the JAX kernel's bfloat16
      arithmetic moves a few cells of that golden); then ``voxel_test`` at
-     160x90 through the trace kernel and its DDA form through the torch
-     DDA, each kernel vs plain renderer and timed
+     160x90 through the trace kernel and its DDA form through the DDA
+     kernel, each kernel vs plain renderer and timed
  17. the default island (256x128x256 voxels, a 224x128x224 window; surface
      tables of 1,536 and 256 clusters): generation, save and load times,
      the surface tables built on the card equal to a CPU build, kernel vs
@@ -68,16 +81,18 @@ Phases (one line each; any failure raises and exits non-zero):
      240x135 (ms/frame by CUDA events, Mray/s, launches, the device idle
      share from torch.profiler)
  18. the same island forced onto the DDA (``surface_mesh=False``) at
-     160x90: kernel vs plain renderer on one frame, ms/frame and DDA rounds
+     160x90: kernel vs plain renderer on one frame, every DDA sweep of a
+     frame against the plain loop bit for bit, ms/frame and DDA sweeps
  19. one frame each of ``teapot``, ``cow``, ``all_meshes`` and ``museum``
-     on the card against the port's plain renderer on the CPU
+     on the card against the port's plain renderer on the CPU, the walk
+     kernel launched, then each timed at 160x90
  20. dynamic scenes: ``exhibit_ring`` and ``spinning_mesh`` patched on the
      card (``DynamicScene.at_time``, the spinning mesh's LBVH rebuilt
      there) equal to the CPU at t = 0, 1.3 and 2.0, with the patch time;
      at 160x90 (bench_suite's "Spinning mesh" row) kernel vs plain
      renderer over 2 frames of ``render_many(times=, scene_fn=)``, then a
-     timed ``render_many`` of 4 (``spinning_mesh``) and 10
-     (``exhibit_ring``) frames: K1 launched, K2 not
+     timed ``render_many`` of 10 frames each: K1 and the walk kernel
+     launched, K2 not
  21. the terminal program (``engine.program.main``, fd 1 on a temporary
      file) on Cornell at 160x90 for 60 ticks with ``--batch 1`` and
      ``--batch 8``: ANSI frames and HUD written, K2 and K1 launched, the
@@ -105,8 +120,8 @@ Phases (one line each; any failure raises and exits non-zero):
      2 and 4 ranks on the one card (the cost of the exchange and the split
      post where ranks share a card, not a scale-out figure); (e) the scenes
      of (c) at world 1 over the group ``make_group`` makes by default on
-     CUDA (NCCL, the exchange on the card, nothing staged; no fallback;
-     the teapot in 2 frames): every frame bit-equal to the world-1 gloo
+     CUDA (NCCL, the exchange on the card, nothing staged; no
+     fallback): every frame bit-equal to the world-1 gloo
      frame and held to (c)'s contract against the unsharded frame, the
      kernels launched; a scene of every tensor dtype of the shipped scenes
      through ``broadcast_scene``, exact; ``combine``'s partial against the
@@ -125,11 +140,14 @@ Phases (one line each; any failure raises and exits non-zero):
      functions, each printed row parsed, its rates finite and positive
      and its ``kernels`` those of the scene's route; (c) ``python -m
      yetanotherconsolegameengine_tpu_torch.bench`` once
+Every timed run asserts that the plain walk and DDA loops ran no round.
 Then a JSON line of per-kernel results (``ms`` is the device time,
-``event_ms`` the CUDA-event time; ``launches`` counts Cornell's timed run for
-K1 and K2 and the dragon's for K3, ``launches_by_path`` every timed run,
-the shell's runs, the sharded runs and the suite's rows; K1's
-``global_memory`` holds phase 6d),
+``event_ms`` the CUDA-event time, ``share`` the bound over ``ms``;
+``launches`` counts Cornell's timed run for K1 and K2, the dragon's for
+K3, the bunny's for the walk kernel and the forced-DDA island's for the
+DDA kernel, ``launches_by_path`` every timed run, the shell's runs, the
+sharded runs and the suite's rows; K1's ``global_memory`` holds phase
+6d; the walk and DDA kernels' ``cases`` their phase 11 and 15 cases),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -161,7 +179,7 @@ from yetanotherconsolegameengine_tpu_torch.ops import (cluster_kernel, dda,
                                                        mesh_bvh, post_kernel)
 from yetanotherconsolegameengine_tpu_torch.ops import trace_kernel
 from yetanotherconsolegameengine_tpu_torch.ops.intersect import (
-    INF, INTERSECTORS)
+    INF, INTERSECTORS, _lanes)
 from yetanotherconsolegameengine_tpu_torch.render.renderer import (
     RaytraceRenderer, trace_wavefront_planes)
 from yetanotherconsolegameengine_tpu_torch.scene.builders import SCENE_BUILDERS
@@ -169,7 +187,7 @@ from yetanotherconsolegameengine_tpu_torch.scene.mesh_loader import make_knot
 from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import (
     FORCED_SCENE_BUILDERS)
 from yetanotherconsolegameengine_tpu_torch.tools.profile_frame import (
-    cuda_ms, device_ms, k3_work, roofline)
+    cuda_ms, dda_bound, device_ms, k3_work, roofline, walk_bound)
 from yetanotherconsolegameengine_tpu_torch.utils.profiling import timed
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -180,7 +198,9 @@ TRACE_FRAME = 3
 TIMED_FRAMES = 200
 DRAGON_W, DRAGON_H = 240, 135   # the mesh frame: 240x270 traced pixels
 DRAGON_FRAMES = 20
-BUNNY_FRAMES = 10               # the small-mesh frame: 160x180 traced pixels
+BUNNY_FRAMES = 30               # the small-mesh frame: 160x180 traced pixels
+MESH_FRAMES = 10                # teapot, cow, all_meshes, museum at 160x90
+CAVE_FRAMES = 30                # voxel_cave at 160x90
 DEMO_FRAMES = 100
 VOXEL_FRAMES = 100              # voxel_test 160x90 through K2
 VOXEL_DDA_FRAMES = 10           # its DDA form, the torch DDA
@@ -194,14 +214,9 @@ SHARD_DRAGON_TIMED = 5
 # 4 ranks, and the timed Cornell frames at 1, 2 and 4 ranks, 160x88.
 SHARD_DRAGON_H = 136
 SHARD_FB_H = 88
-# Phase 23e renders 23c's scenes at world 1 twice (NCCL and gloo) with
-# 23c's frame counts, but the teapot's in two frames (the second reads the
-# first's history through the exchange): its BVH walk takes ~4 s a frame
-# even at 48x28, and the phase is kept well under a minute.
-WORLD1_FRAMES = {"teapot": 2}
-DDA_ISLAND_FRAMES = 6           # the forced-DDA island
+DDA_ISLAND_FRAMES = 32          # the forced-DDA island
 DYNAMIC_TIMES = (0.0, 1.3, 2.0)
-SPIN_FRAMES = 4                 # bench_suite's "Spinning mesh" row, 160x90
+SPIN_FRAMES = 10                # bench_suite's "Spinning mesh" row, 160x90
 RING_FRAMES = 10
 SHELL_TICKS = 60                # the terminal program's frames
 # bench_suite rows 1-5 with their sustained batches cut from 2000 frames
@@ -360,6 +375,127 @@ def hit_contract(got, want) -> dict:
             if hit.any() else 1.0}
 
 
+def bit_contract(got, want) -> dict:
+    """Hold a sweep kernel's hits to its plain version's on the same rays:
+    t, n, u, v, mat and hit equal bit for bit (floats compared as their
+    int32 bits), so the error is 0.0."""
+    for f in ("t", "n", "u", "v", "mat", "hit"):
+        g, w = getattr(got, f).cpu(), getattr(want, f).cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape, f
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), f"{f} differs from the plain version"
+    return {"rays": int(want.hit.numel()), "hits": int(want.hit.sum()),
+            "max_abs_err": 0.0}
+
+
+def bounce_rays(o, d, h, seed: int = 0):
+    """Bounce rays from a sweep's hits ``h`` of rays o, d: origins at the
+    hit points (parked at 2.9e30 where the ray missed, as the wavefront
+    parks finished lanes), directions on a hemisphere of the hit normal
+    (even lanes leave the surface as a reflection does, odd lanes enter it
+    as a refraction into a glass mesh does), per-ray tmin in [1e-4, 1e-2)
+    and tmax in [1, 100), from a seeded numpy generator. Returns (o, d,
+    tmin, tmax), contiguous on o's device."""
+    P = o.shape[0]
+    rs = np.random.RandomState(seed)
+    r = rs.randn(P, 3)
+    r = torch.from_numpy((r / np.linalg.norm(r, axis=1, keepdims=True))
+                         .astype(np.float32)).to(o.device)
+    side = torch.where(torch.arange(P, device=o.device) % 2 == 0, 1.0, -1.0)
+    r = torch.where(((r * h.n).sum(1) * side < 0.0)[:, None], -r, r)
+    p = torch.where(h.hit[:, None], o + h.t[:, None] * d, 2.9e30)
+    lo = torch.from_numpy(rs.uniform(1e-4, 1e-2, P).astype(np.float32))
+    hi = torch.from_numpy(rs.uniform(1.0, 100.0, P).astype(np.float32))
+    return (p.contiguous(), r.contiguous(), lo.to(o.device),
+            hi.to(o.device))
+
+
+def primary_rays(scene, w: int, h: int, frame: int = TRACE_FRAME):
+    """(o, d) of a scene's primary rays at w x h traced pixels."""
+    params = ray_params(scene.default_pose, w, h, frame)
+    return tuple(x.reshape(-1, 3).contiguous() for x in make_jittered_rays(
+        None, w, h, frame, params=params))
+
+
+def walk_cases(dev, w: int, h: int) -> dict:
+    """The walk kernel's inputs, {name: (bvh, o, d, tmin, tmax)} on
+    ``dev``: the bunny's primary rays at w x h and bounce rays from their
+    hits; w * h rays from a seeded ring of origins around the ``make_knot``
+    LBVH aimed at jittered triangle corners; ``exhibit_ring``'s primary
+    rays at t = 0 against its glass hero mesh and bounce rays from
+    them."""
+    cases = {}
+    for name in ("bunny", "exhibit_ring"):
+        scene = SCENE_BUILDERS[name]()
+        scene = (scene.at_time(0.0) if hasattr(scene, "at_time")
+                 else scene).to(dev)
+        o, d = primary_rays(scene, w, h)
+        prim = mesh_bvh.intersect_mesh(scene.mesh, o, d, 1e-3, INF,
+                                       impl="plain")
+        cases[f"{name}_primary"] = (scene.mesh, o, d, 1e-3, INF)
+        cases[f"{name}_bounce"] = (scene.mesh, *bounce_rays(o, d, prim))
+    knot = make_knot()
+    soup = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+            (knot[:, 0], knot[:, 1], knot[:, 2],
+             np.arange(len(knot), dtype=np.int32) % 3)]
+    rs = np.random.RandomState(1)
+    P = w * h
+    center = knot.reshape(-1, 3).mean(0)
+    ring = rs.randn(P, 3)
+    o = center + 4.0 * ring / np.linalg.norm(ring, axis=1, keepdims=True)
+    aim = knot[rs.randint(0, len(knot), P), rs.randint(0, 3, P)]
+    d = aim + 0.1 * rs.randn(P, 3) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cases["knot_lbvh"] = (lbvh.build_lbvh(*soup),
+                          torch.from_numpy(o.astype(np.float32)).to(dev),
+                          torch.from_numpy(d.astype(np.float32)).to(dev),
+                          1e-3, INF)
+    return cases
+
+
+def dda_cases(dev, w: int, h: int) -> dict:
+    """The DDA kernel's inputs, {name: (world, o, d, tmin, tmax)} on
+    ``dev``: ``voxel_cave``'s primary rays at w x h and bounce rays from
+    their hits, and the primary rays of ``voxel_test``'s DDA form."""
+    from yetanotherconsolegameengine_tpu_torch.scene.voxel_scenes import (
+        build_voxel_test_scene)
+    cave = SCENE_BUILDERS["voxel_cave"]().to(dev)
+    o, d = primary_rays(cave, w, h, 2)
+    prim = dda.intersect_voxels(cave.voxels, o, d, 1e-3, INF, impl="plain")
+    room = build_voxel_test_scene(merge="dda").to(dev)
+    return {"voxel_cave_primary": (cave.voxels, o, d, 1e-3, INF),
+            "voxel_cave_bounce": (cave.voxels, *bounce_rays(o, d, prim)),
+            "voxel_test_dda": (room.voxels, *primary_rays(room, w, h),
+                               1e-3, INF)}
+
+
+def sweep_kernel_cases(cases, key: str, sweep, launch, grid_args, count,
+                       bound) -> dict:
+    """Phases 11 and 15 on each case (grid, o, d, tmin, tmax) of
+    ``cases``: ``sweep`` (the path's entry; impl None takes the kernel
+    ``key``, one launch) bit-equal to its plain version on the card; the
+    kernel's device time (``launch`` alone on the case's tensors,
+    torch.profiler) and the sweep's CUDA-event time; the work these rays
+    need (``count``: the plain loop's active lanes summed over its rounds)
+    and the least time ``bound`` gives it."""
+    res = {}
+    for name, (grid, o, d, lo, hi) in cases.items():
+        before = kernels.LAUNCHES[key]
+        got = sweep(grid, o, d, lo, hi)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[key] == before + 1, f"{name}: launches"
+        err = bit_contract(got, sweep(grid, o, d, lo, hi, impl="plain"))
+        kargs = (*grid_args(grid), o, d, _lanes(lo, o), _lanes(hi, o))
+        ms = kernel_ms(lambda: launch(*kargs), 20)
+        ev = cuda_ms(lambda: sweep(grid, o, d, lo, hi), 20)
+        work = count(grid, o, d, lo, hi)
+        least, by = bound(work, o.shape[0])
+        res[name] = dict(err, ms=ms, event_ms=ev, bound_ms=least,
+                         bound_by=by, share=least / ms, work=work)
+    return res
+
+
 def frame_times(first: int, n: int):
     """Times of frames first..first+n-1 of a dynamic scene at 30 fps."""
     return [(first + k) / 30.0 for k in range(n)]
@@ -386,6 +522,8 @@ def timed_frames(r, n: int, keys, warmup: int = 2, poses=None,
     launches = dict(kernels.LAUNCHES)
     for k in keys:
         assert launches[k] > 0, f"kernel {k} was not launched by the path"
+    assert not mesh_bvh.STATS["rounds"] and not dda.STATS["rounds"], \
+        "the plain BVH walk or DDA loop ran on the kernel path"
     fg = _np(grids[0])
     assert fg.shape == (n, r.fb_h, r.fb_w) and fg.min() >= 16
     assert np.isfinite(_np(out.top_rgb)).all()
@@ -483,23 +621,37 @@ def sweep_contract(got, ref, args) -> dict:
             "entries": int(steps.sum()), "entries_serial": int(rsteps.sum())}
 
 
-def record_sweeps(fn):
-    """Run ``fn`` and return [(K3 arguments, K3 result), ...] of every
-    cluster sweep it launched."""
+def record_calls(fn, mod, attr: str):
+    """Run ``fn`` with ``mod.attr`` wrapped; returns [(positional
+    arguments, keyword arguments, result), ...] of every call it made."""
     calls = []
-    real = cluster_kernel.trace_tiles
+    real = getattr(mod, attr)
 
-    def spy(*args):
-        out = real(*args)
-        calls.append((args, out))
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out))
         return out
 
-    cluster_kernel.trace_tiles = spy
+    setattr(mod, attr, spy)
     try:
         fn()
     finally:
-        cluster_kernel.trace_tiles = real
+        setattr(mod, attr, real)
     return calls
+
+
+def record_sweeps(fn):
+    """Run ``fn`` and return [(K3 arguments, K3 result), ...] of every
+    cluster sweep it launched."""
+    return [(args, out) for args, _, out in
+            record_calls(fn, cluster_kernel, "trace_tiles")]
+
+
+def recorded_bit_contract(calls, plain) -> list:
+    """Each recorded sweep ``record_calls`` gave (the kernel's hits) held
+    bit for bit to ``plain`` on the same arguments."""
+    return [bit_contract(out, plain(*args, **dict(kw, impl="plain")))
+            for args, kw, out in calls]
 
 
 def same_surface_tables(a, b) -> None:
@@ -604,7 +756,11 @@ def island_phases(dev, card):
             poses = orbit_poses(vs, DDA_ISLAND_FRAMES)
             err, r = renderer_contract(scene, FB_W, FB_H, dev, frames=1,
                                        cam=poses[0])
-            run = timed_frames(r, DDA_ISLAND_FRAMES, ("post",), poses=poses)
+            calls = record_calls(r.render, dda, "intersect_voxels")
+            assert calls, "no DDA sweep in a forced-DDA island frame"
+            bits = recorded_bit_contract(calls, dda.intersect_voxels)
+            run = timed_frames(r, DDA_ISLAND_FRAMES, ("post", "dda"),
+                               poses=poses)
             idle = idle_share(r, poses[:2])
         finally:
             vs.manager.shutdown()
@@ -612,14 +768,13 @@ def island_phases(dev, card):
     print(f"phase 18 {card} forced-DDA island {FB_W}x{FB_H} ss=1 "
           f"({DDA_ISLAND_FRAMES} orbit poses, cut from bench_suite's 128 for "
           f"time): kernel vs plain renderer, 1 frame {json.dumps(err)}; "
-          f"{run['ms']:.4f} ms/frame by CUDA events, {run['host_ms']:.4f} by "
-          f"host clock, {run['mray_s']:.3f} Mray/s; launches "
-          f"{run['launches']}; DDA per frame {sw / DDA_ISLAND_FRAMES:.1f} "
-          f"sweeps, per sweep {run['dda']['rounds'] / sw:.1f} rounds, "
-          f"{run['dda']['waits'] / sw:.1f} host waits, "
-          f"{run['dda'].get('compactions', 0) / sw:.2f} compactions; device "
-          f"busy {idle['busy_ms']:.4f} of {idle['wall_ms']:.4f} ms/frame, "
-          f"{idle['ops']:.1f} device operations/frame, idle share "
+          f"every DDA sweep of a frame ({len(calls)}) kernel vs the plain "
+          f"loop bit for bit {json.dumps(bits)}; {run['ms']:.4f} ms/frame by "
+          f"CUDA events, {run['host_ms']:.4f} by host clock, "
+          f"{run['mray_s']:.3f} Mray/s; launches {run['launches']}; DDA per "
+          f"frame {sw / DDA_ISLAND_FRAMES:.1f} sweeps, one launch each; "
+          f"device busy {idle['busy_ms']:.4f} of {idle['wall_ms']:.4f} "
+          f"ms/frame, {idle['ops']:.1f} device operations/frame, idle share "
           f"{idle['idle_share']:.4f}", flush=True)
     return orbit, run
 
@@ -669,7 +824,7 @@ def dynamic_phases(dev, card) -> dict:
         patch_host = (time.perf_counter() - t0) * 1e3 / 10
         err, rk = renderer_contract(dyn.at_time(0.0), FB_W, FB_H, dev,
                                     frames=2, scene_fn=dyn.at_time)
-        run = timed_frames(rk, frames, ("post",), warmup=1,
+        run = timed_frames(rk, frames, ("post", "bvh"), warmup=1,
                            scene_fn=dyn.at_time)
         assert run["launches"]["trace"] == 0, "a dynamic scene took K2"
         runs[name] = run
@@ -795,6 +950,7 @@ def shell_phases(dev, card) -> dict:
               batched_contract("spinning_mesh", 3, 48, 28, 4, dev)]
     assert checks[0]["launches"]["trace"] > 0
     assert checks[1]["launches"]["post"] > 0
+    assert checks[1]["launches"]["bvh"] > 0
     assert checks[1]["launches"]["trace"] == 0
     print(f"phase 21b {card} batched component vs unbatched on the card: "
           f"{json.dumps(checks)}", flush=True)
@@ -1051,7 +1207,7 @@ def sharding_phases(dev, card, packs, post_in, dragon, cfg) -> dict:
     print(f"phase 23b {card} dryrun(4), {how}: scenes "
           f"{sorted(dry[0]['frames'])} "
           f"finite at 32x8 cells on every rank; launches (trace, post, "
-          f"clusters) of each rank {json.dumps(dry_launches)} in "
+          f"clusters, bvh, dda) of each rank {json.dumps(dry_launches)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # (c) the sharded frames against the unsharded frame.
@@ -1089,8 +1245,8 @@ def sharding_phases(dev, card, packs, post_in, dragon, cfg) -> dict:
             "cornell88": ("trace", "post"),
             "dragon": ("clusters", "post"),
             "cluster_forced": ("clusters", "post"),
-            "voxel_test": ("trace", "post"), "voxel_test_dda": ("post",),
-            "teapot": ("post",)}
+            "voxel_test": ("trace", "post"),
+            "voxel_test_dda": ("post", "dda"), "teapot": ("post", "bvh")}
     contract, launches = {}, {}
     for n, res in ((2, res2), (4, res4)):
         for name in res[0]["frames"]:
@@ -1104,7 +1260,7 @@ def sharding_phases(dev, card, packs, post_in, dragon, cfg) -> dict:
           f"{SHARD_FB_H} (cornell88) on 2 and 4, dragon {DRAGON_W}x"
           f"{SHARD_DRAGON_H}, the rest 48x28; {SHARD_FRAMES} frames; spawns of 2 "
           f"and 4 ranks {s2:.1f} s and {s4:.1f} s): {json.dumps(contract)}; "
-          f"launches (trace, post, clusters) of each rank "
+          f"launches (trace, post, clusters, bvh, dda) of each rank "
           f"{json.dumps({k: [list(c.values()) for c in v] for k, v in launches.items()})}",
           flush=True)
     for (what, d), (key, per_rank) in zip(contract.items(), launches.items()):
@@ -1250,10 +1406,6 @@ def nccl_phase(dev, card, shard, dragon, island, inputs, cfg) -> dict:
     for name, job in shard["jobs"].items():
         if name == "dragon":
             job = dataclasses.replace(job, build=lambda: dragon, timed=0)
-        if name in WORLD1_FRAMES:
-            job = dataclasses.replace(job, n_frames=WORLD1_FRAMES[name])
-            want[name] = unsharded(job.build(), job.fb_w, job.fb_h, dev,
-                                   job.n_frames, job.ss)
         jobs.append(job)
     timed_job = [shard["jobs"]["cornell88"]]
     r = RaytraceRenderer(SCENE_BUILDERS["cornell"](), FB_W, SHARD_FB_H,
@@ -1286,7 +1438,7 @@ def nccl_phase(dev, card, shard, dragon, island, inputs, cfg) -> dict:
           f"{json.dumps(nccl['group'])} (gloo: {json.dumps(gloo['group'])});"
           f" phase 23c's scenes, each NCCL frame bit-equal to the gloo "
           f"frame; vs the unsharded frame {json.dumps(contract)}; launches "
-          f"(trace, post, clusters) "
+          f"(trace, post, clusters, bvh, dda) "
           f"{json.dumps({k: list(nccl['launches'][k].values()) for k in nccl['launches']})}"
           f"; broadcast_scene round trip exact "
           f"{json.dumps(nccl['extra']['round_trip'])}; combine "
@@ -1687,26 +1839,40 @@ def main() -> int:
           f"{lbvh_ms:.4f} ms by CUDA events, {lbvh_host:.4f} ms by host "
           f"clock (20 builds)", flush=True)
 
-    # ---- 11. the BVH walk on the card vs the CPU -------------------------
+    # ---- 11. the BVH walk kernel vs the plain walk on the card ----------
     bunny = SCENE_BUILDERS["bunny"]()
     bunny_card = bunny.to(dev)
     lbvh_contract(bunny_card.mesh, bunny.mesh)
-    b_params = ray_params(bunny_card.default_pose, HI_W, HI_H, TRACE_FRAME)
-    o, d = (x.reshape(-1, 3) for x in make_jittered_rays(
-        None, HI_W, HI_H, TRACE_FRAME, params=b_params))
-    mesh_bvh.STATS.clear()
-    got = mesh_bvh.intersect_mesh(bunny_card.mesh, o, d, 1e-3, INF)
-    torch.cuda.synchronize()
-    walk = dict(mesh_bvh.STATS)
-    walk_err = hit_contract(got, mesh_bvh.intersect_mesh(
-        bunny.mesh, o.cpu(), d.cpu(), 1e-3, INF))
-    walk_ms = cuda_ms(lambda: mesh_bvh.intersect_mesh(
-        bunny_card.mesh, o, d, 1e-3, INF), 5, 1)
-    print(f"phase 11 {card} BVH walk on the card vs the CPU, bunny primary "
-          f"rays {HI_W}x{HI_H} frame {TRACE_FRAME}: {json.dumps(walk_err)}; "
-          f"{walk_ms:.3f} ms a sweep by CUDA events; {walk['rounds']} "
-          f"rounds, {walk['waits']} host waits, "
-          f"{walk.get('compactions', 0)} compactions", flush=True)
+    walk_in = walk_cases(dev, HI_W, HI_H)
+    walk_res = sweep_kernel_cases(
+        walk_in, "bvh", mesh_bvh.intersect_mesh, mesh_bvh.walk,
+        lambda bvh: (bvh.rows,), mesh_bvh.walk_work, walk_bound)
+    main_walk = walk_in["bunny_primary"]
+    o, d = main_walk[1], main_walk[2]
+    walk_cpu = hit_contract(mesh_bvh.intersect_mesh(*main_walk),
+                            mesh_bvh.intersect_mesh(bunny.mesh, o.cpu(),
+                                                    d.cpu(), 1e-3, INF))
+    walk_plain_ms = cuda_ms(lambda: mesh_bvh.intersect_mesh(
+        *main_walk, impl="plain"), 3, 1)
+    ring = SCENE_BUILDERS["exhibit_ring"]().at_time(0.0)
+    ring_r = RaytraceRenderer(ring, FB_W, FB_H, device=dev)
+    ring_calls = record_calls(ring_r.render, mesh_bvh, "intersect_mesh")
+    ring_bits = recorded_bit_contract(ring_calls, mesh_bvh.intersect_mesh)
+    assert ring_calls, "no walk sweep in an exhibit_ring frame"
+    wm = walk_res["bunny_primary"]
+    print(f"phase 11 {card} BVH walk kernel vs the plain walk on the card, "
+          f"bit for bit (t, n, u, v, mat, hit), {HI_W}x{HI_H} rays a case "
+          f"(ms: kernel device time | the sweep by CUDA events; bound and "
+          f"share; work: node visits, triangle tests, rows read, lockstep "
+          f"rounds, the most visits of a ray, the share of a warp's visit "
+          f"slots used): {json.dumps(walk_res)}; every walk sweep of an "
+          f"exhibit_ring frame at {FB_W}x{FB_H} ({len(ring_calls)} sweeps, "
+          f"the glass hero mesh) bit-equal: "
+          f"{json.dumps(ring_bits)}; bunny primary rays card vs CPU "
+          f"{json.dumps(walk_cpu)}; bunny primary: kernel {wm['ms']:.4f} ms "
+          f"| {wm['event_ms']:.4f} ms a sweep vs the plain walk "
+          f"{walk_plain_ms:.3f} ms, bound {wm['bound_ms']:.5f} ms by "
+          f"{wm['bound_by']}, share {wm['share']:.2%}", flush=True)
 
     # ---- 12. texture and glass-gem goldens on the card -------------------
     tex_golden_err = {}
@@ -1726,7 +1892,7 @@ def main() -> int:
 
     # ---- 13. the bunny and demo_random at 160x90 -------------------------
     b_err, bk = renderer_contract(bunny, FB_W, FB_H, dev)
-    b_run = timed_frames(bk, BUNNY_FRAMES, ("post",))
+    b_run = timed_frames(bk, BUNNY_FRAMES, ("post", "bvh"))
     print(f"phase 13a {card} bunny {FB_W}x{FB_H} ss=1: kernel vs plain "
           f"renderer, 4 frames: {json.dumps(b_err)}; render_many("
           f"{BUNNY_FRAMES}): {b_run['ms']:.4f} ms/frame by CUDA events, "
@@ -1786,30 +1952,38 @@ def main() -> int:
           f"(max texel change {moved:.4f}), TAA reset, launches "
           f"{dict(kernels.LAUNCHES)}", flush=True)
 
-    # ---- 15. the voxel DDA on the card vs the CPU ------------------------
+    # ---- 15. the voxel DDA kernel vs the plain loop on the card ---------
     cave = SCENE_BUILDERS["voxel_cave"]()
-    cave_card = cave.to(dev)
-    c_params = ray_params(cave_card.default_pose, HI_W, HI_H, TRACE_FRAME)
-    o, d = (x.reshape(-1, 3) for x in make_jittered_rays(
-        None, HI_W, HI_H, TRACE_FRAME, params=c_params))
-    dda.STATS.clear()
-    got = dda.intersect_voxels(cave_card.voxels, o, d, 1e-3, INF)
-    torch.cuda.synchronize()
-    march = dict(dda.STATS)
-    want = dda.intersect_voxels(cave.voxels, o.cpu(), d.cpu(), 1e-3, INF)
-    dda_err = hit_contract(got, want)
-    assert dda_err["t_bit_equal"] == 1.0, "DDA t not bit-equal to the CPU"
-    dda_ms = cuda_ms(lambda: dda.intersect_voxels(
-        cave_card.voxels, o, d, 1e-3, INF), 5, 1)
-    _, dda_ops = device_ms(lambda: dda.intersect_voxels(
-        cave_card.voxels, o, d, 1e-3, INF), 1, 1)
-    print(f"phase 15 {card} voxel DDA on the card vs the CPU, voxel_cave "
-          f"primary rays {HI_W}x{HI_H} frame {TRACE_FRAME}: "
-          f"{json.dumps(dda_err)}; {dda_ms:.3f} ms a sweep by CUDA events; "
-          f"{march['rounds']} rounds, {march['waits']} host waits, "
-          f"{march.get('compactions', 0)} compactions; {dda_ops:.0f} device "
-          f"operations a sweep, {dda_ops / march['rounds']:.1f} a round",
-          flush=True)
+    dda_in = dda_cases(dev, HI_W, HI_H)
+    dda_res = sweep_kernel_cases(
+        dda_in, "dda", dda.intersect_voxels, dda.march,
+        lambda w: (w.cells, w.origin, w.voxel_size), dda.march_work,
+        dda_bound)
+    main_dda = dda_in["voxel_cave_primary"]
+    o, d = main_dda[1], main_dda[2]
+    dda_cpu = hit_contract(dda.intersect_voxels(*main_dda),
+                           dda.intersect_voxels(cave.voxels, o.cpu(),
+                                                d.cpu(), 1e-3, INF))
+    assert dda_cpu["t_bit_equal"] == 1.0, "DDA t not bit-equal to the CPU"
+    dda_plain_ms = cuda_ms(lambda: dda.intersect_voxels(
+        *main_dda, impl="plain"), 3, 1)
+    cave_r = RaytraceRenderer(cave, FB_W, FB_H, device=dev)
+    cave_run = timed_frames(cave_r, CAVE_FRAMES, ("post", "dda"))
+    dm = dda_res["voxel_cave_primary"]
+    print(f"phase 15 {card} voxel DDA kernel vs the plain loop on the card, "
+          f"bit for bit (t, n, u, v, mat, hit), {HI_W}x{HI_H} rays a case "
+          f"(ms: kernel device time | the sweep by CUDA events; bound and "
+          f"share; work: rounds, cells read, lockstep rounds, the most "
+          f"rounds of a ray, the share of a warp's round slots used): "
+          f"{json.dumps(dda_res)}; voxel_cave primary rays card vs CPU "
+          f"{json.dumps(dda_cpu)}; voxel_cave primary: kernel "
+          f"{dm['ms']:.4f} ms | {dm['event_ms']:.4f} ms a sweep vs the plain "
+          f"loop {dda_plain_ms:.3f} ms, bound {dm['bound_ms']:.5f} ms by "
+          f"{dm['bound_by']}, share {dm['share']:.2%}; voxel_cave {FB_W}x"
+          f"{FB_H} ss=1 render_many({CAVE_FRAMES}): {cave_run['ms']:.4f} "
+          f"ms/frame by CUDA events, {cave_run['host_ms']:.4f} by host "
+          f"clock, {cave_run['mray_s']:.3f} Mray/s, launches "
+          f"{cave_run['launches']}, DDA {cave_run['dda']}", flush=True)
 
     # ---- 16. the voxel goldens on the card, the voxel room at 160x90 -----
     from yetanotherconsolegameengine_tpu_torch.scene.voxel_scenes import (
@@ -1859,7 +2033,7 @@ def main() -> int:
     room_run = timed_frames(room_r, VOXEL_FRAMES, ("trace", "post"))
     droom_err, droom_r = renderer_contract(
         build_voxel_test_scene(merge="dda"), FB_W, FB_H, dev, frames=1)
-    droom_run = timed_frames(droom_r, VOXEL_DDA_FRAMES, ("post",))
+    droom_run = timed_frames(droom_r, VOXEL_DDA_FRAMES, ("post", "dda"))
     assert droom_run["launches"]["trace"] == 0
     print(f"phase 16b {card} voxel_test {FB_W}x{FB_H} ss=1 through K2: "
           f"kernel vs plain renderer, 4 frames {json.dumps(room_err)}; "
@@ -1877,12 +2051,13 @@ def main() -> int:
     orbit, dda_run = island_phases(dev, card)
 
     # ---- 19. the small-mesh scenes on the card vs the CPU ----------------
-    mesh_err = {}
+    mesh_err, mesh_runs = {}, {}
     for name in ("teapot", "cow", "all_meshes", "museum"):
         scene = SCENE_BUILDERS[name]()
         kernels.reset_launches()
         gk, ok_ = RaytraceRenderer(scene, 48, 28, device=dev).render_many(1)
         assert kernels.LAUNCHES["post"] == 1, f"{name} without K1"
+        assert kernels.LAUNCHES["bvh"] > 0, f"{name} without the walk kernel"
         gp, op_ = RaytraceRenderer(scene, 48, 28,
                                    device="cpu").render_many(1)
         err = max(np.abs(_np(ok_.top_rgb) - _np(op_.top_rgb)).max(),
@@ -1892,8 +2067,15 @@ def main() -> int:
         assert err <= 2e-3 and flips < 0.005, (name, err, flips)
         assert int(ok_.rays_traced) == int(op_.rays_traced), name
         mesh_err[name] = {"rgb": float(err), "ansi_flips": flips}
+        mesh_runs[name] = timed_frames(RaytraceRenderer(
+            scene, FB_W, FB_H, device=dev), MESH_FRAMES, ("post", "bvh"),
+            warmup=1)
+    timed19 = {k: [v["ms"], v["host_ms"], v["launches"]]
+               for k, v in mesh_runs.items()}
     print(f"phase 19 {card} small-mesh scenes, card (kernels) vs the CPU "
-          f"(plain), 48x28, 1 frame: {json.dumps(mesh_err)}", flush=True)
+          f"(plain), 48x28, 1 frame: {json.dumps(mesh_err)}; {FB_W}x{FB_H} "
+          f"ss=1 render_many({MESH_FRAMES}) ms/frame by CUDA events | host "
+          f"clock, launches: {json.dumps(timed19)}", flush=True)
 
     # ---- 20-22. dynamic scenes, the shell, video mode and scene sync -----
     dyn_runs = dynamic_phases(dev, card)
@@ -1930,7 +2112,7 @@ def main() -> int:
          "launches": launches["trace"],
          "max_abs_err": max(e["radiance_abs"] for e in trace_err.values()),
          "ms": d_k2, "event_ms": t_k2, "plain_ms": t_k2p,
-         "bound_ms": k2_bound[0],
+         "bound_ms": k2_bound[0], "share": k2_bound[0] / d_k2,
          "bound_by": k2_bound[1], "library_ms": None,
          "launches_by_path": {"cornell": launches["trace"],
                               "demo_random": demo_run["launches"]["trace"],
@@ -1952,7 +2134,7 @@ def main() -> int:
          "launches": launches["post"],
          "max_abs_err": max(e["rgb"] for e in post_err.values()),
          "ms": d_k1, "event_ms": t_k1, "plain_ms": t_k1p,
-         "bound_ms": k1_bound[0],
+         "bound_ms": k1_bound[0], "share": k1_bound[0] / d_k1,
          "bound_by": k1_bound[1], "library_ms": None,
          "launches_by_path": {"cornell": launches["post"],
                               "dragon": d_launches["post"],
@@ -1988,7 +2170,7 @@ def main() -> int:
          "replaces": "yetanotherconsolegameengine_tpu/ops/mesh_clusters.py:557",
          "launches": d_launches["clusters"], "max_abs_err": k3_err,
          "ms": t_k3, "event_ms": e_k3, "plain_ms": t_k3p,
-         "bound_ms": k3_bound,
+         "bound_ms": k3_bound, "share": k3_bound / t_k3,
          "bound_by": "operations" if all(
              x["bound_by"] == "operations" for x in k3_sweeps) else "bytes",
          "library_ms": None,
@@ -1998,6 +2180,46 @@ def main() -> int:
                               **{k: v["clusters"]
                                  for k, v in shell_launches.items()},
                               **sharded("clusters")}},
+        {"name": "bvh", "route": "cuda",
+         "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
+                   "bvh_kernel.cu",
+         "replaces": "yetanotherconsolegameengine_tpu/ops/mesh_bvh.py:364",
+         "launches": b_run["launches"]["bvh"],
+         "max_abs_err": max(r["max_abs_err"] for r in
+                            [*walk_res.values(), *ring_bits]),
+         "ms": wm["ms"], "event_ms": wm["event_ms"],
+         "plain_ms": walk_plain_ms, "bound_ms": wm["bound_ms"],
+         "share": wm["share"], "bound_by": wm["bound_by"],
+         "library_ms": None,
+         "launches_by_path": {"bunny": b_run["launches"]["bvh"],
+                              **{k: v["launches"]["bvh"]
+                                 for k, v in mesh_runs.items()},
+                              **{k: v["launches"]["bvh"]
+                                 for k, v in dyn_runs.items()},
+                              **{k: v["bvh"]
+                                 for k, v in shell_launches.items()
+                                 if v["bvh"]},
+                              **sharded("bvh")},
+         "cases": {k: {f: v[f] for f in ("ms", "event_ms", "bound_ms",
+                                         "share", "rays", "hits")}
+                   for k, v in walk_res.items()}},
+        {"name": "dda", "route": "cuda",
+         "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
+                   "dda_kernel.cu",
+         "replaces": "yetanotherconsolegameengine_tpu/ops/dda.py:207",
+         "launches": dda_run["launches"]["dda"],
+         "max_abs_err": max(r["max_abs_err"] for r in dda_res.values()),
+         "ms": dm["ms"], "event_ms": dm["event_ms"],
+         "plain_ms": dda_plain_ms, "bound_ms": dm["bound_ms"],
+         "share": dm["share"], "bound_by": dm["bound_by"],
+         "library_ms": None,
+         "launches_by_path": {"voxel_cave": cave_run["launches"]["dda"],
+                              "voxel_test_dda": droom_run["launches"]["dda"],
+                              "island_dda": dda_run["launches"]["dda"],
+                              **sharded("dda")},
+         "cases": {k: {f: v[f] for f in ("ms", "event_ms", "bound_ms",
+                                         "share", "rays", "hits")}
+                   for k, v in dda_res.items()}},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,13 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (hit_contract, lbvh_contract, post_contract,
-                        record_sweeps, sweep_contract, trace_contract)
+from chip_smoke import (bit_contract, dda_cases, hit_contract,
+                        lbvh_contract, post_contract, record_sweeps,
+                        sweep_contract, trace_contract, walk_cases)
 from yetanotherconsolegameengine_tpu_torch.config import DEFAULT_CONFIG
 from yetanotherconsolegameengine_tpu_torch.core.camera import (
     make_jittered_rays, ray_params)
-from yetanotherconsolegameengine_tpu_torch.ops import (cluster_kernel, kernels,
-                                                       lbvh, mesh_bvh,
+from yetanotherconsolegameengine_tpu_torch.ops import (cluster_kernel, dda,
+                                                       kernels, lbvh,
+                                                       mesh_bvh,
                                                        mesh_clusters,
                                                        post_kernel,
                                                        trace_kernel)
@@ -695,3 +697,79 @@ def test_world_one_nccl_frames_equal_the_gloo_frames(dev, tmp_path):
     assert all(c["post"] == 8 for c in nccl["launches"].values())
     assert {"bool", "float32", "int16", "int32"} <= set(
         nccl["extra"][0]["dtypes"])
+
+
+_CASES = {}
+
+
+def _sweep_cases(dev, which):
+    """Phase 11's and 15's inputs at 96x64 rays (one build a process)."""
+    if which not in _CASES:
+        make = walk_cases if which == "walk" else dda_cases
+        _CASES[which] = make(dev, 96, 64)
+    return _CASES[which]
+
+
+def _first(case, P):
+    """A sweep case cut to its first ``P`` rays."""
+    grid, o, d, lo, hi = case
+    cut = [x[:P] if torch.is_tensor(x) else x for x in (lo, hi)]
+    return (grid, o[:P].contiguous(), d[:P].contiguous(), *cut)
+
+
+@pytest.mark.parametrize("P", [0, 1, 31, 4097])
+@pytest.mark.parametrize("name", ["bunny_primary", "bunny_bounce",
+                                  "knot_lbvh", "exhibit_ring_primary"])
+def test_walk_kernel_equals_the_plain_walk_bit_for_bit(dev, name, P):
+    """One launch a sweep (none for an empty batch), t, n, u, v, mat and
+    hit bit-equal to the plain walk on the card."""
+    args = _first(_sweep_cases(dev, "walk")[name], P)
+    before = kernels.LAUNCHES["bvh"]
+    got = mesh_bvh.intersect_mesh(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bvh"] == before + (1 if P else 0)
+    res = bit_contract(got, mesh_bvh.intersect_mesh(*args, impl="plain"))
+    assert res["rays"] == P
+
+
+@pytest.mark.parametrize("P", [0, 1, 31, 4097])
+@pytest.mark.parametrize("name", ["voxel_cave_primary", "voxel_cave_bounce",
+                                  "voxel_test_dda"])
+def test_dda_kernel_equals_the_plain_loop_bit_for_bit(dev, name, P):
+    args = _first(_sweep_cases(dev, "dda")[name], P)
+    before = kernels.LAUNCHES["dda"]
+    got = dda.intersect_voxels(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dda"] == before + (1 if P else 0)
+    res = bit_contract(got, dda.intersect_voxels(*args, impl="plain"))
+    assert res["rays"] == P
+
+
+def test_walk_and_dda_kernels_reject_bad_inputs(dev):
+    """The wrappers take contiguous f32 (int16 cells) CUDA tensors only."""
+    bvh, o, d, _, _ = _first(_sweep_cases(dev, "walk")["knot_lbvh"], 64)
+    w, vo, vd, _, _ = _first(_sweep_cases(dev, "dda")["voxel_cave_primary"],
+                             64)
+    lo = torch.full((64,), 1e-3, device=dev)
+    hi = torch.full((64,), INF, device=dev)
+    wide = torch.zeros((64, 6), device=dev)[:, :3]
+    rows = bvh.rows
+    for call, bad in (
+            (lambda x: mesh_bvh.walk(rows, x, d, lo, hi),
+             [(o.cpu(), ValueError), (o.double(), TypeError),
+              (wide, ValueError)]),
+            (lambda x: mesh_bvh.walk(x, o, d, lo, hi),
+             [(rows.cpu(), ValueError), (rows[:, :59], ValueError),
+              (rows[:, :59].contiguous(), ValueError),
+              (torch.empty(rows.numel() + 1, device=dev)[1:].view_as(rows),
+               ValueError)]),
+            (lambda x: dda.march(w.cells, w.origin, w.voxel_size, x, vd, lo,
+                                 hi),
+             [(vo.cpu(), ValueError), (vo.double(), TypeError),
+              (wide, ValueError)]),
+            (lambda x: dda.march(x, w.origin, w.voxel_size, vo, vd, lo, hi),
+             [(w.cells.cpu(), ValueError), (w.cells.int(), TypeError),
+              (w.cells.transpose(0, 2), ValueError)])):
+        for x, err in bad:
+            with pytest.raises(err):
+                call(x)

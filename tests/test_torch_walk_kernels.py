@@ -1,0 +1,483 @@
+"""The BVH walk and voxel DDA kernels' surroundings on the CPU (the kernels
+themselves run only on the card: tests/test_torch_cuda.py).
+
+``intersect_mesh`` and ``intersect_voxels`` take their plain loops for CPU
+tensors and refuse ``impl="kernel"`` there; ``intersect_scene`` hands its
+``impl`` to both sweeps; a tree's packed node rows are built once and equal
+``node_rows``; the DDA kernel's grid constants are the plain loop's. A
+numpy model of each kernel's thread (one ray's whole loop, float32 scalar
+arithmetic in the kernel's operation order) equals the plain version bit
+for bit and the JAX package's function within tests/test_torch_mesh_bvh.py's
+and tests/test_torch_dda.py's tolerances, and counts the work that
+``walk_work`` and ``march_work`` report."""
+
+import dataclasses
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yetanotherconsolegameengine_tpu.ops import dda as jdda
+from yetanotherconsolegameengine_tpu.ops import lbvh as jlbvh
+from yetanotherconsolegameengine_tpu.ops import mesh_bvh as jbvh
+from yetanotherconsolegameengine_tpu.scene import mesh_loader as jml
+from yetanotherconsolegameengine_tpu_torch.core.camera import (
+    make_jittered_rays, ray_params)
+from yetanotherconsolegameengine_tpu_torch.ops import (dda, intersect,
+                                                       kernels, lbvh,
+                                                       mesh_bvh)
+from yetanotherconsolegameengine_tpu_torch.ops.intersect import INF
+from yetanotherconsolegameengine_tpu_torch.scene.builders import SCENE_BUILDERS
+
+# The suite runs several xdist workers beside JAX's own thread pools;
+# torch's per-process intra-op pool would oversubscribe the cores.
+torch.set_num_threads(1)
+
+CSRC = Path(mesh_bvh.__file__).resolve().parent / "csrc"
+F = np.float32
+KINF = F(3e38)
+
+
+def knot():
+    tris = jml.make_knot(seg_u=48, seg_v=6)
+    return (tris[:, 0], tris[:, 1], tris[:, 2],
+            (np.arange(len(tris)) % 3).astype(np.int32))
+
+
+def rays_at(aim, n, seed, spread=3.0):
+    """Rays from Gaussian origins toward jittered points of ``aim``."""
+    rs = np.random.RandomState(seed)
+    o = (spread * rs.randn(n, 3)).astype(np.float32)
+    d = aim[rs.randint(0, len(aim), n)] + 0.2 * rs.randn(n, 3) - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return torch.from_numpy(o), torch.from_numpy(d)
+
+
+def primary(scene, w, h, frame=3):
+    params = ray_params(scene.default_pose, w, h, frame)
+    return tuple(x.reshape(-1, 3).contiguous() for x in make_jittered_rays(
+        None, w, h, frame, params=params))
+
+
+def cave():
+    return SCENE_BUILDERS["voxel_cave"]()
+
+
+# ---- the numpy models of one kernel thread ---------------------------------
+
+def _min(a, b):      # torch.minimum
+    return a if a != a else (b if b != b else (b if b < a else a))
+
+
+def _max(a, b):      # torch.maximum
+    return a if a != a else (b if b != b else (b if b > a else a))
+
+
+def _inv(x):         # _safe_div(1, x)
+    return F(1) / ((F(-1e-12) if x < 0 else F(1e-12)) if abs(x) < F(1e-12)
+                   else x)
+
+
+def _mt(tri, o, d):
+    """Double-sided Moller-Trumbore on one triangle's 13 floats."""
+    a, e1, e2 = tri[0:3], tri[3:6], tri[6:9]
+    h = (d[1] * e2[2] - d[2] * e2[1], d[2] * e2[0] - d[0] * e2[2],
+         d[0] * e2[1] - d[1] * e2[0])
+    det = (e1[0] * h[0] + e1[1] * h[1]) + e1[2] * h[2]
+    inv_det = _inv(det)
+    s = (o[0] - a[0], o[1] - a[1], o[2] - a[2])
+    u = ((s[0] * h[0] + s[1] * h[1]) + s[2] * h[2]) * inv_det
+    q = (s[1] * e1[2] - s[2] * e1[1], s[2] * e1[0] - s[0] * e1[2],
+         s[0] * e1[1] - s[1] * e1[0])
+    v = ((d[0] * q[0] + d[1] * q[1]) + d[2] * q[2]) * inv_det
+    tt = ((e2[0] * q[0] + e2[1] * q[1]) + e2[2] * q[2]) * inv_det
+    ok = (abs(det) >= F(1e-8) and u >= 0 and u <= 1 and v >= 0
+          and u + v <= 1)
+    return tt, u, v, ok
+
+
+def walk_thread(rows, o, d, t_lo, t_hi):
+    """csrc/bvh_kernel.cu's thread: (t, n, u, v, mat, hit, visits)."""
+    inv = [_inv(x) for x in d]
+    t, n, wm, bu, bv = t_hi, [F(0)] * 3, F(0), F(0), F(0)
+    node = visits = 0
+    while node < rows.shape[0] and visits < rows.shape[0]:
+        visits += 1
+        r = rows[node]
+        ta = [(r[a] - o[a]) * inv[a] for a in range(3)]
+        tb = [(r[3 + a] - o[a]) * inv[a] for a in range(3)]
+        t0 = _max(_max(_min(ta[0], tb[0]), _min(ta[1], tb[1])),
+                  _min(ta[2], tb[2]))
+        t1 = _min(_min(_max(ta[0], tb[0]), _max(ta[1], tb[1])),
+                  _max(ta[2], tb[2]))
+        box = t0 <= t1 and t1 >= t_lo and t0 <= t
+        leaf = r[7] > 0
+        tris = [r[8 + 13 * k:21 + 13 * k] for k in range(4)]
+        if box and leaf:
+            best, kk, cu, cv = KINF, 0, F(0), F(0)
+            for k in range(4):
+                tt, u, v, ok = _mt(tris[k], o, d)
+                tk = tt if (F(k) < r[7] and ok and tt >= t_lo
+                            and tt < t) else KINF
+                if k == 0 or tk < best:
+                    best, kk, cu, cv = tk, k, u, v
+            if best < t:
+                t, bu, bv = best, cu, cv
+                n, wm = list(tris[kk][9:12]), tris[kk][12]
+        elif KINF < t:
+            _, bu, bv, _ = _mt(tris[0], o, d)
+            t, n, wm = KINF, list(tris[0][9:12]), tris[0][12]
+        node = node + 1 if box and not leaf else int(r[6])
+    hit = bool(t < t_hi)
+    if (n[0] * d[0] + n[1] * d[1]) + n[2] * d[2] >= 0:
+        n = [-x for x in n]
+    return t if hit else KINF, n, bu, bv, int(wm), hit, visits
+
+
+def march_thread(cells, origin, h, o, d, t_lo, t_hi):
+    """csrc/dda_kernel.cu's thread: (t, n, mat, hit, rounds)."""
+    dims = cells.shape
+    flat_cells = cells.reshape(-1)
+    eps = F(1e-4) * h
+    inv = [_inv(x) for x in d]
+    for a in range(3):
+        gmax = origin[a] + F(dims[a]) * h
+        ta, tb = (origin[a] - o[a]) * inv[a], (gmax - o[a]) * inv[a]
+        lo, hi = _min(ta, tb), _max(ta, tb)
+        if a == 0:
+            t_enter, t_exit, axis = lo, hi, 0
+        else:
+            if (lo != lo and t_enter == t_enter) or lo > t_enter:
+                t_enter, axis = lo, a
+            t_exit = _min(t_exit, hi)
+    t_start = _max(t_enter, t_lo)
+    inside = t_enter < t_lo
+    alive = t_enter <= t_exit and t_start < t_hi and t_exit >= t_lo
+    tcap = _min(t_exit, t_hi)
+    t, t_hit, axis_hit, mat, hit, rounds = t_start, KINF, 0, 0, False, 0
+    while alive:
+        rounds += 1
+        te = t + eps
+        cell, in_grid, lin = [], True, 0
+        for a in range(3):
+            c = int(np.floor((o[a] + te * d[a] - origin[a]) / h))
+            cc = min(max(c, 0), dims[a] - 1)
+            in_grid, lin = in_grid and cc == c, lin * dims[a] + cc
+            cell.append(c)
+        if not (in_grid and t < tcap):
+            break
+        enc = int(flat_cells[lin])
+        if enc > 0:
+            hit, t_hit, axis_hit, mat = True, t, axis, enc
+            break
+        for a in range(3):
+            ta = ((F(cell[a] + (d[a] > 0)) * h + origin[a]) - o[a]) * inv[a]
+            ta = KINF if abs(d[a]) < F(1e-12) else ta
+            if a == 0 or (ta != ta and t_new == t_new) or ta < t_new:
+                t_new, new_axis = ta, a
+        t_new = _max(t_new, t + F(max(-2 - enc, 0)) * h)
+        t, axis = _max(t_new, te), new_axis
+    s = F(1) if d[axis_hit] < 0 else F(-1)
+    face = inside and t_hit <= t_start + eps
+    n = [-d[a] if face else F(a == axis_hit) * s for a in range(3)]
+    return t_hit if hit else KINF, n, mat, hit, rounds
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def _lanes(v, n):
+    return (v.numpy() if torch.is_tensor(v)
+            else np.full(n, v, np.float32)).astype(np.float32)
+
+
+def walk_model(bvh, o, d, tmin, tmax):
+    rows = bvh.rows.numpy()
+    lo, hi = _lanes(tmin, len(o)), _lanes(tmax, len(o))
+    with np.errstate(over="ignore", invalid="ignore"):   # IEEE, as on the card
+        return [walk_thread(rows, o[i].numpy(), d[i].numpy(), lo[i], hi[i])
+                for i in range(len(o))]
+
+
+def march_model(w, o, d, tmin, tmax):
+    cells, origin = w.cells.numpy(), w.origin.numpy()
+    h = F(w.voxel_size.item())
+    lo, hi = _lanes(tmin, len(o)), _lanes(tmax, len(o))
+    with np.errstate(over="ignore", invalid="ignore"):
+        return [march_thread(cells, origin, h, o[i].numpy(), d[i].numpy(),
+                             lo[i], hi[i]) for i in range(len(o))]
+
+
+def _same_bits(model, hit, fields):
+    for i, m in enumerate(model):
+        for f, got in zip(fields, m):
+            want = getattr(hit, f)[i]
+            if f in ("mat", "hit"):
+                assert got == want.item(), (i, f)
+            else:
+                assert np.array_equal(_bits(got), _bits(want.numpy())), \
+                    (i, f, got, want)
+
+
+# ---- routing ---------------------------------------------------------------
+
+def _walk_case():
+    a, b, c, m = knot()
+    bvh = mesh_bvh.build_mesh_bvh(a, b, c, m)
+    return (bvh, *rays_at(a, 64, 0), 1e-3, INF)
+
+
+def _dda_case():
+    scene = cave()
+    return (scene.voxels, *primary(scene, 8, 8), 1e-3, INF)
+
+
+SWEEPS = {"walk": (mesh_bvh, "intersect_mesh", _walk_case, "bvh"),
+          "dda": (dda, "intersect_voxels", _dda_case, "dda")}
+
+
+@pytest.mark.parametrize("name", sorted(SWEEPS))
+def test_sweeps_take_the_plain_loop_on_the_cpu(name):
+    mod, fn, case, key = SWEEPS[name]
+    args = case()
+    before = dict(kernels.LAUNCHES)
+    mod.STATS.clear()
+    got = getattr(mod, fn)(*args)
+    assert mod.STATS["sweeps"] == 1 and mod.STATS["rounds"] > 0
+    assert kernels.LAUNCHES == before
+    want = getattr(mod, fn)(*args, impl="plain")
+    for f in ("t", "n", "u", "v", "mat", "hit"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("name", sorted(SWEEPS))
+def test_sweeps_refuse_the_kernel_on_the_cpu(name):
+    mod, fn, case, key = SWEEPS[name]
+    before = kernels.LAUNCHES[key]
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(mod, fn)(*case(), impl="kernel")
+    assert kernels.LAUNCHES[key] == before
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The launch wrappers take CUDA tensors only; nothing falls back."""
+    bvh, o, d, _, _ = _walk_case()
+    lo, hi = torch.full((64,), 1e-3), torch.full((64,), INF)
+    with pytest.raises(ValueError, match="CUDA"):
+        mesh_bvh.walk(bvh.rows, o, d, lo, hi)
+    w, o, d, _, _ = _dda_case()
+    lo, hi = torch.full((64,), 1e-3), torch.full((64,), INF)
+    with pytest.raises(ValueError, match="CUDA"):
+        dda.march(w.cells, w.origin, w.voxel_size, o, d, lo, hi)
+
+
+@pytest.mark.parametrize("impl", [None, "plain"])
+def test_intersect_scene_passes_its_impl_to_both_sweeps(monkeypatch, impl):
+    """The mesh and voxel sweeps get the scene sweep's resolved ``impl``,
+    as the cluster sweep does."""
+    seen = []
+
+    def spy(real):
+        def f(*args, **kw):
+            seen.append((real.__name__, kw.get("impl")))
+            return real(*args, **kw)
+        return f
+
+    monkeypatch.setattr(mesh_bvh, "intersect_mesh",
+                        spy(mesh_bvh.intersect_mesh))
+    monkeypatch.setattr(dda, "intersect_voxels", spy(dda.intersect_voxels))
+    scene = dataclasses.replace(SCENE_BUILDERS["bunny"](),
+                                voxels=cave().voxels)
+    o, d = primary(scene, 8, 6)
+    intersect.intersect_scene(scene, o, d, 1e-3, INF, impl=impl)
+    assert seen == [("intersect_mesh", "plain"),
+                    ("intersect_voxels", "plain")]
+    with pytest.raises(ValueError, match="CUDA"):
+        intersect.intersect_scene(scene, o, d, 1e-3, INF, impl="kernel")
+
+
+def test_lanes_equal_col():
+    """``_lanes`` (the kernels' per-ray bounds, filled on the device) gives
+    ``_col``'s values, for numbers and tensors."""
+    o = torch.zeros(5, 3)
+    for v in (1e-3, INF, float("inf"), np.float32(0.1),
+              torch.tensor(2.5), torch.arange(5.0)):
+        got = intersect._lanes(v, o)
+        assert got.is_contiguous() and got.dtype == torch.float32
+        assert torch.equal(got, intersect._col(v, o)[:, 0])
+
+
+# ---- packed rows and grid constants ----------------------------------------
+
+@pytest.mark.parametrize("tree", ["sah", "lbvh"])
+def test_rows_are_packed_once_per_tree(tree):
+    a, b, c, m = knot()
+    bvh = (mesh_bvh.build_mesh_bvh(a, b, c, m) if tree == "sah" else
+           lbvh.build_lbvh(*(torch.from_numpy(x) for x in (a, b, c, m))))
+    rows = bvh.rows
+    assert rows is bvh.rows
+    assert torch.equal(rows, mesh_bvh.node_rows(bvh))
+    assert rows.shape == (bvh.n_nodes, 8 + 13 * mesh_bvh.LEAF_K)
+    assert rows.is_contiguous() and rows.stride(0) * 4 % 16 == 0
+    moved = bvh.to("cpu")
+    assert moved is not bvh and moved.rows is not rows
+    assert torch.equal(moved.rows, rows)
+
+
+def test_a_rebuilt_tree_packs_its_own_rows():
+    """The spinning mesh rebuilds its LBVH every frame: each frame's tree
+    carries the rows of its own nodes."""
+    spin = SCENE_BUILDERS["spinning_mesh"]()
+    a, b = spin.at_time(0.0).mesh, spin.at_time(1.3).mesh
+    assert not torch.equal(a.rows, b.rows)
+    for bvh in (a, b):
+        assert torch.equal(bvh.rows, mesh_bvh.node_rows(bvh))
+
+
+def test_dda_kernel_grid_constants_equal_the_plain_loops():
+    """What csrc/dda_kernel.cu derives from its arguments (the cells'
+    shape, the origin and voxel-size tensors) is what ``_step`` reads."""
+    w = cave().voxels
+    g = dda.grid_constants(w, "cpu")
+    nx, ny, nz = w.cells.shape
+    assert [nx, ny, nz] == (g["top"] + 1).tolist()
+    # lin = (x * ny + y) * nz + z in the kernel
+    assert [ny * nz, nz, 1] == g["strides"].tolist()
+    assert torch.equal(g["gmin"], w.origin)
+    assert torch.equal(g["h_t"], w.voxel_size)
+    h = F(w.voxel_size.item())
+    assert g["h"] == float(h)
+    assert g["eps"] == float(F(1e-4) * h)
+    src = (CSRC / "dda_kernel.cu").read_text()
+    for expr in ("const float eps = 1e-4f * h;",
+                 "lin = lin * dims[a] + cc;",
+                 "const int dims[3] = {gx, gy, gz};"):
+        assert expr in src, expr
+    assert torch.equal(g["cells"], w.cells.reshape(-1).to(torch.int32))
+    assert w.cells.dtype == torch.int16
+
+
+# ---- the kernels' models ---------------------------------------------------
+
+WALK_FIELDS = ("t", "n", "u", "v", "mat", "hit")
+DDA_FIELDS = ("t", "n", "mat", "hit")
+
+
+def _walk_inputs():
+    """Bunny primary rays; knot rays with per-ray bounds; parked lanes; a
+    tmax of inf (the plain walk's first round then takes INF)."""
+    bunny = SCENE_BUILDERS["bunny"]()
+    o, d = primary(bunny, 12, 8)
+    a, b, c, m = knot()
+    tree = mesh_bvh.build_mesh_bvh(a, b, c, m)
+    ko, kd = rays_at(a, 96, 1)
+    rs = np.random.RandomState(2)
+    lo = torch.from_numpy(rs.uniform(0.0, 0.5, 96).astype(np.float32))
+    hi = torch.from_numpy(rs.uniform(1.0, 8.0, 96).astype(np.float32))
+    return {"bunny": (bunny.mesh, o, d, 1e-3, INF),
+            "knot_bounds": (tree, ko, kd, lo, hi),
+            "parked": (tree, torch.full((4, 3), 2.9e30), kd[:4], 1e-3, INF),
+            "inf_tmax": (tree, ko[:16], kd[:16], 1e-3, float("inf"))}
+
+
+@pytest.mark.parametrize("case", ["bunny", "knot_bounds", "parked",
+                                  "inf_tmax"])
+def test_walk_thread_model_equals_the_plain_walk(case):
+    """One ray's whole walk in a thread, run to its own end, gives the
+    lockstep walk's outputs bit for bit; its visits are what ``walk_work``
+    counts."""
+    args = _walk_inputs()[case]
+    model = walk_model(*args)
+    _same_bits(model, mesh_bvh.intersect_mesh(*args), WALK_FIELDS)
+    work = mesh_bvh.walk_work(*args)
+    visits = [m[-1] for m in model]
+    assert work["visits"] == sum(visits)
+    assert work["max_visits"] == max(visits) == work["rounds"]
+    if case == "parked":
+        assert visits == [1] * 4 and work["tri_tests"] == 0
+
+
+def test_walk_thread_model_matches_jax():
+    """The model against JAX ``intersect_mesh`` on an LBVH, with
+    tests/test_torch_mesh_bvh.py's contract."""
+    a, b, c, m = knot()
+    jt = jlbvh.build_lbvh(a, b, c, m)
+    pt = lbvh.build_lbvh(*(torch.from_numpy(x) for x in (a, b, c, m)))
+    o, d = rays_at(a, 160, 3)
+    tmax = np.random.RandomState(4).uniform(2.0, 12.0, 160).astype(np.float32)
+    want = jbvh.intersect_mesh(jt, jnp.asarray(o.numpy()),
+                               jnp.asarray(d.numpy()), np.float32(1e-3),
+                               jnp.asarray(tmax))
+    model = walk_model(pt, o, d, 1e-3, torch.from_numpy(tmax))
+    hit = np.asarray(want.hit)
+    assert hit.sum() > 50
+    np.testing.assert_array_equal([x[5] for x in model], hit)
+    tg = np.float32([x[0] for x in model])[hit]
+    tw = np.asarray(want.t)[hit]
+    np.testing.assert_allclose(tg, tw, rtol=1e-5, atol=1e-6)
+    same = np.abs(tg - tw) <= 1e-6 * np.abs(tw)
+    assert same.mean() > 0.99
+    np.testing.assert_array_equal(np.int32([x[4] for x in model])[hit][same],
+                                  np.asarray(want.mat)[hit][same])
+
+
+def _dda_inputs():
+    scene = cave()
+    o, d = primary(scene, 12, 8, 2)
+    w = scene.voxels
+    rs = np.random.RandomState(5)
+    lo = torch.from_numpy(rs.uniform(0.0, 1.0, len(o)).astype(np.float32))
+    hi = torch.from_numpy(rs.uniform(2.0, 40.0, len(o)).astype(np.float32))
+    axis = d.clone()
+    axis[:8] = torch.tensor([[1.0, 0, 0], [0, 1.0, 0], [0, 0, -1.0],
+                             [-1.0, 0, 0]] * 2)
+    return {"cave": (w, o, d, 1e-3, INF),
+            "cave_bounds": (w, o, d, lo, hi),
+            "axis_aligned": (w, o, axis, 1e-3, INF),
+            "parked": (w, torch.full((4, 3), 2.9e30), d[:4], 1e-3, INF)}
+
+
+@pytest.mark.parametrize("case", ["cave", "cave_bounds", "axis_aligned",
+                                  "parked"])
+def test_march_thread_model_equals_the_plain_loop(case):
+    args = _dda_inputs()[case]
+    model = march_model(*args)
+    _same_bits(model, dda.intersect_voxels(*args), DDA_FIELDS)
+    work = dda.march_work(*args)
+    rounds = [m[-1] for m in model]
+    assert work["rounds"] == sum(rounds)
+    assert work["max_rounds"] == max(rounds)
+
+
+def test_march_thread_model_matches_jax():
+    """The model against JAX ``intersect_voxels`` on the cave, with
+    tests/test_torch_dda.py's contract."""
+    scene = cave()
+    w = scene.voxels
+    jw = jdda.VoxelWorld(cells=jnp.asarray(w.cells.numpy()),
+                         origin=jnp.asarray(w.origin.numpy()),
+                         voxel_size=jnp.asarray(w.voxel_size.numpy()))
+    o, d = primary(scene, 12, 8, 1)
+    want = jdda.intersect_voxels(jw, jnp.asarray(o.numpy()),
+                                 jnp.asarray(d.numpy()), np.float32(1e-3),
+                                 np.float32(1e9))
+    model = march_model(w, o, d, 1e-3, 1e9)
+    hit = np.asarray(want.hit)
+    assert hit.sum() > 50
+    np.testing.assert_array_equal([x[3] for x in model], hit)
+    np.testing.assert_array_equal([x[2] for x in model],
+                                  np.asarray(want.mat))
+    np.testing.assert_array_equal(np.float32([x[1] for x in model])[hit],
+                                  np.asarray(want.n)[hit])
+    np.testing.assert_allclose(np.float32([x[0] for x in model]),
+                               np.asarray(want.t), rtol=1e-5, atol=1e-5)
+
+
+def test_warp_efficiency_counts_a_warp_as_its_longest_ray():
+    lane = torch.tensor([1] * 32 + [0] * 31 + [64])
+    assert kernels.warp_efficiency(lane) == (32 + 64) / (32 * 1 + 32 * 64)
+    assert kernels.warp_efficiency(torch.tensor([3] * 40)) == 120 / 192
+    assert kernels.warp_efficiency(torch.zeros(0, dtype=torch.int64)) == 1.0

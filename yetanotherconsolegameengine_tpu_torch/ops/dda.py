@@ -14,18 +14,22 @@ does, for each ray, pure arithmetic and one gather:
 A unit-direction ray moves at most s per axis over a distance s, so the
 (D - 1)-cell jump never skips a solid cell.
 
-The rays advance in lockstep. A finished ray (hit, left the grid or past
-its tmax) changes nothing in later rounds, so the loop waits on the host
-only every ``CHECK_EVERY`` rounds to see whether rays still march, and
-once at most a quarter of a batch of at least ``COMPACT_MIN`` lanes does,
-it gathers the marching lanes (``nonzero``) into a narrower batch, as
-``ops/mesh_bvh.py`` does. Per-lane arithmetic does not depend on the other
-lanes, so the result equals the uncompacted loop bit for bit, and on the
-card it equals the CPU bit for bit. (The JAX package narrows by
-``argsort`` to P/4 then P/16 and selects the normal by ``one_hot``; here a
-gather does both. XLA's CPU backend fuses the boundary's ``cell * h +
-origin`` into one multiply-add, which the port rounds twice, so t can
-differ from the JAX package's by an ulp.)
+``intersect_voxels`` launches the DDA kernel (``csrc/dda_kernel.cu``, one
+thread a ray, one launch a sweep, no host wait, the int16 cells read as
+they are) for CUDA tensors and runs the plain loop for CPU tensors. In
+the plain loop the rays advance in lockstep. A finished ray (hit, left the
+grid or past its tmax) changes nothing in later rounds, so the loop waits
+on the host only every ``CHECK_EVERY`` rounds to see whether rays still
+march, and once at most a quarter of a batch of at least ``COMPACT_MIN``
+lanes does, it gathers the marching lanes (``nonzero``) into a narrower
+batch, as ``ops/mesh_bvh.py`` does. Per-lane arithmetic does not depend on
+the other lanes, so the result equals the uncompacted loop bit for bit, on
+the card it equals the CPU bit for bit, and the kernel, which runs each
+lane's rounds in one thread in the same operation order, equals it too.
+(The JAX package narrows by ``argsort`` to P/4 then P/16 and selects the
+normal by ``one_hot``; here a gather does both. XLA's CPU backend fuses
+the boundary's ``cell * h + origin`` into one multiply-add, which the port
+rounds twice, so t can differ from the JAX package's by an ulp.)
 """
 
 from __future__ import annotations
@@ -36,9 +40,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..devices import resolve_device
+from ..devices import resolve_device, resolve_impl
 from ..scene._tensors import Tensors
-from .intersect import INF, Hit, _col, _safe_div
+from . import kernels
+from .intersect import INF, Hit, _col, _lanes, _safe_div
 
 BRICK = 8      # grids are padded to multiples of 8^3 bricks
 # Chebyshev distance cap in cells: empty-space jumps reach MAX_DIST - 1
@@ -50,8 +55,8 @@ CHECK_EVERY = 8
 # still marches.
 COMPACT_MIN = 1024
 
-# Work counters of the loop (sweeps, rounds, host waits, compactions), for
-# the frame profiler; ``STATS.clear()`` resets them.
+# Work counters of the DDA (sweeps; the plain loop's rounds, host waits and
+# compactions), for the frame profiler; ``STATS.clear()`` resets them.
 STATS = collections.Counter()
 
 
@@ -113,9 +118,10 @@ def build_voxel_world(cells: np.ndarray, origin, voxel_size: float,
         voxel_size=torch.tensor(voxel_size, dtype=torch.float32, device=dev))
 
 
-def _step(st: dict, g: dict) -> None:
+def _step(st: dict, g: dict, work: dict = None) -> None:
     """One lockstep round on the lanes of ``st``, in place. ``g``: the
-    grid constants of the sweep."""
+    grid constants of the sweep. ``work``, when given, sums the lanes that
+    march this round and marks the cells they read (``march_work``)."""
     t, alive = st["t"], st["alive"]
     h, eps = g["h"], g["eps"]
     te = t + eps
@@ -125,8 +131,13 @@ def _step(st: dict, g: dict) -> None:
     cell = torch.floor((p - g["gmin"]) / g["h_t"]).to(torch.int32)
     cc = torch.clamp(cell, g["zero"], g["top"])
     in_grid = (cc == cell).all(1)
+    if work is not None:
+        work["rounds"] += alive
     alive = alive & in_grid & (t < st["tcap"])
-    enc = g["cells"][(cc * g["strides"]).sum(1)]
+    lin = (cc * g["strides"]).sum(1)
+    enc = g["cells"][lin]
+    if work is not None:
+        work["cells"][lin[alive].long()] = True
     # A lane hits at most once: after a hit it is dead for good.
     solid = alive & (enc > 0)
     st["hit"] = st["hit"] | solid
@@ -148,28 +159,37 @@ def _step(st: dict, g: dict) -> None:
 _OUT = ("hit", "t_hit", "axis_hit", "mat")
 
 
-def intersect_voxels(w: VoxelWorld, o, d, tmin, tmax,
-                     compact: bool = True) -> Hit:
-    """Nearest solid-cell hit of (P, 3) rays, with entry-face normals;
-    tmin/tmax scalar or (P,). A ray whose origin is inside the grid and
-    that hits at its start has no entry face and gets ``-d``.
-    ``compact=False`` marches every lane to the end (the reference the
-    compacted loop equals)."""
-    P = o.shape[0]
-    dev = o.device
+def grid_constants(w: VoxelWorld, dev) -> dict:
+    """The plain loop's grid constants on ``dev``, as ``_step`` reads
+    them. ``h`` and ``eps`` are host floats holding f32 values (every
+    product with them is the f32 product of f32 values, as in the JAX
+    package); reading ``h`` waits on the host once a sweep."""
     nx, ny, nz = w.dims
     dims = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
-    # The grid's scalars as host floats: every product below is the f32
-    # product of f32 values, as in the JAX package.
     h = float(w.voxel_size)
-    eps = float(np.float32(1e-4) * np.float32(h))
+    return dict(h=h, eps=float(np.float32(1e-4) * np.float32(h)),
+                gmin=w.origin.to(dev), h_t=w.voxel_size.to(dev),
+                zero=torch.zeros(3, dtype=torch.int32, device=dev),
+                top=dims - 1,
+                strides=torch.tensor([ny * nz, nz, 1], dtype=torch.int32,
+                                     device=dev),
+                cells=w.cells.reshape(-1).to(dev, torch.int32))
+
+
+def _start(w: VoxelWorld, o, d, tmin, tmax):
+    """(the plain loop's lanes before the first round, t_start, inside,
+    the grid constants)."""
+    P = o.shape[0]
+    dev = o.device
+    g = grid_constants(w, dev)
+    h = g["h"]
     t_lo = _col(tmin, o)[:, 0]
     t_hi = _col(tmax, o)[:, 0]
     inv_d = _safe_div(torch.ones_like(d), d)
 
     # Grid box entry and exit.
-    gmin = w.origin.to(dev)
-    gmax = gmin + dims.to(torch.float32) * h
+    gmin = g["gmin"]
+    gmax = gmin + (g["top"] + 1).to(torch.float32) * h
     ta = (gmin[None] - o) * inv_d
     tb = (gmax[None] - o) * inv_d
     t_enter, enter_axis = torch.max(torch.minimum(ta, tb), 1)
@@ -177,21 +197,34 @@ def intersect_voxels(w: VoxelWorld, o, d, tmin, tmax,
     t_start = torch.maximum(t_enter, t_lo)
     inside = t_enter < t_lo
     alive0 = (t_enter <= t_exit) & (t_start < t_hi) & (t_exit >= t_lo)
+    st = dict(t=t_start, axis=enter_axis, alive=alive0,
+              hit=torch.zeros(P, dtype=torch.bool, device=dev),
+              t_hit=torch.full((P,), INF, device=dev),
+              axis_hit=torch.zeros(P, dtype=torch.int64, device=dev),
+              mat=torch.zeros(P, dtype=torch.int32, device=dev),
+              o=o, d=d, inv=inv_d, tcap=torch.minimum(t_exit, t_hi),
+              up=(d > 0.0).to(torch.int32), flat=d.abs() < 1e-12)
+    return st, t_start, inside, g
 
-    g = dict(h=h, eps=eps, gmin=gmin, h_t=w.voxel_size.to(dev),
-             zero=torch.zeros(3, dtype=torch.int32, device=dev),
-             top=dims - 1,
-             strides=torch.tensor([ny * nz, nz, 1], dtype=torch.int32,
-                                  device=dev),
-             cells=w.cells.reshape(-1).to(dev, torch.int32))
-    full = dict(t=t_start, axis=enter_axis, alive=alive0,
-                hit=torch.zeros(P, dtype=torch.bool, device=dev),
-                t_hit=torch.full((P,), INF, device=dev),
-                axis_hit=torch.zeros(P, dtype=torch.int64, device=dev),
-                mat=torch.zeros(P, dtype=torch.int32, device=dev),
-                o=o, d=d, inv=inv_d, tcap=torch.minimum(t_exit, t_hi),
-                up=(d > 0.0).to(torch.int32), flat=d.abs() < 1e-12)
+
+def intersect_voxels(w: VoxelWorld, o, d, tmin, tmax,
+                     compact: bool = True, impl=None) -> Hit:
+    """Nearest solid-cell hit of (P, 3) rays, with entry-face normals;
+    tmin/tmax scalar or (P,). A ray whose origin is inside the grid and
+    that hits at its start has no entry face and gets ``-d``.
+    ``impl``: "kernel" (the DDA kernel, one launch), "plain" (the torch
+    loop), None: from the rays' device. ``compact=False`` marches every
+    lane of the plain loop to the end (the reference the compacted loop
+    equals)."""
+    impl = resolve_impl(impl, o.device)
     STATS["sweeps"] += 1
+    if impl == "kernel":
+        return march(w.cells.contiguous(), w.origin, w.voxel_size,
+                     o.contiguous(), d.contiguous(), _lanes(tmin, o),
+                     _lanes(tmax, o))
+    P = o.shape[0]
+    dev = o.device
+    full, t_start, inside, g = _start(w, o, d, tmin, tmax)
     cur, lanes = full, None
     while True:
         for _ in range(CHECK_EVERY):
@@ -216,7 +249,7 @@ def intersect_voxels(w: VoxelWorld, o, d, tmin, tmax,
     d_axis = d.gather(1, axis_hit[:, None])[:, 0]
     n = torch.eye(3, device=dev)[axis_hit] \
         * torch.where(d_axis < 0, 1.0, -1.0)[:, None]
-    n = torch.where((inside & (t_hit <= t_start + eps))[:, None], -d, n)
+    n = torch.where((inside & (t_hit <= t_start + g["eps"]))[:, None], -d, n)
     z = torch.zeros(P, device=dev)
     return Hit(t=torch.where(hit, t_hit, INF), n=n, u=z, v=z,
                mat=full["mat"], hit=hit)
@@ -225,3 +258,61 @@ def intersect_voxels(w: VoxelWorld, o, d, tmin, tmax,
 def _write_back(full: dict, cur: dict, lanes) -> None:
     for k in _OUT:
         full[k] = full[k].index_copy(0, lanes, cur[k])
+
+
+def march(cells, origin, voxel_size, o, d, tmin, tmax) -> Hit:
+    """Launch the DDA kernel: ``cells`` (nx, ny, nz) int16
+    distance-encoded, ``origin`` (3,) and ``voxel_size`` () f32, o/d
+    (P, 3) f32, tmin/tmax (P,) f32, all contiguous on one CUDA device.
+    Returns ``intersect_voxels``'s ``Hit``; an empty batch launches
+    nothing."""
+    P = o.shape[0]
+    kernels.require(cells, "cells", torch.int16)
+    if cells.dim() != 3:
+        raise ValueError(f"cells must be (nx, ny, nz), got "
+                         f"{tuple(cells.shape)}")
+    kernels.require(origin, "origin", torch.float32, (3,))
+    kernels.require(voxel_size, "voxel_size", torch.float32, ())
+    for name, x, shape in (("o", o, (P, 3)), ("d", d, (P, 3)),
+                           ("tmin", tmin, (P,)), ("tmax", tmax, (P,))):
+        kernels.require(x, name, torch.float32, shape)
+    dev = o.device
+    t = torch.empty(P, device=dev)
+    n = torch.empty((P, 3), device=dev)
+    z = torch.empty(P, device=dev)      # u and v: the kernel writes 0
+    mat = torch.empty(P, dtype=torch.int32, device=dev)
+    hit = torch.empty(P, dtype=torch.bool, device=dev)
+    if P:
+        nx, ny, nz = cells.shape
+        err = kernels.library().yacge_dda_launch(
+            cells.data_ptr(), nx, ny, nz, origin.data_ptr(),
+            voxel_size.data_ptr(), o.data_ptr(), d.data_ptr(),
+            tmin.data_ptr(), tmax.data_ptr(), P, t.data_ptr(), n.data_ptr(),
+            z.data_ptr(), mat.data_ptr(), hit.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        kernels.check(err, "DDA kernel")
+        kernels.LAUNCHES["dda"] += 1
+    return Hit(t=t, n=n, u=z, v=z, mat=mat, hit=hit)
+
+
+def march_work(w: VoxelWorld, o, d, tmin, tmax) -> dict:
+    """The work these rays' marches need, counted by running the plain
+    loop uncompacted to its end: rounds (the lanes that enter a round
+    marching, summed over rounds; each is one round of the kernel's loop),
+    the most of any ray, and the distinct cells read; with the lockstep
+    rounds and the share of a warp's round slots that march
+    (``kernels.warp_efficiency``)."""
+    st, _, _, g = _start(w, o, d, tmin, tmax)
+    work = dict(rounds=torch.zeros(o.shape[0], dtype=torch.int64,
+                                   device=o.device),
+                cells=torch.zeros(g["cells"].shape[0], dtype=torch.bool,
+                                  device=o.device))
+    lockstep = 0
+    while bool(st["alive"].any()):
+        _step(st, g, work)
+        lockstep += 1
+    lane = work["rounds"]
+    return {"rounds": int(lane.sum()),
+            "max_rounds": int(lane.max()) if lane.numel() else 0,
+            "cells": int(work["cells"].sum()), "lockstep_rounds": lockstep,
+            "warp_efficiency": kernels.warp_efficiency(lane)}

@@ -81,6 +81,16 @@ def _col(v, o):
                            device=o.device).expand(o.shape[0])[:, None]
 
 
+def _lanes(v, o):
+    """Scalar or (P,) bound -> contiguous (P,) f32 on ``o``'s device, as
+    ``_col`` gives it; a Python number is filled on the device, with no
+    copy from the host (a kernel's sweep never waits on the host)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(o.device, torch.float32).expand(o.shape[0]).contiguous()
+    return torch.full((o.shape[0],), float(v), dtype=torch.float32,
+                      device=o.device)
+
+
 def _first_min(tm, mask):
     """(P, N) candidate t (INF = miss) -> (tbest, row index, hit), taking
     the first row among equal minima."""
@@ -326,8 +336,9 @@ def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
     proxy set, each only when the scene has it; the proxy sets start at
     ``max(tmin, t_bias)``. ``shadow`` queries run in any-hit mode when
     every mesh material is opaque or the scene's shadows are binary.
-    ``presort`` bins the rays before the sweep; ``impl`` picks the sweep
-    ("kernel": K3, "plain": its plain version, None: from the rays'
+    ``presort`` bins the rays before the sweep; ``impl`` picks the
+    mesh, cluster and voxel sweeps ("kernel": the walk kernel, K3 and the
+    DDA kernel; "plain": their plain versions; None: from the rays'
     device)."""
     impl = resolve_impl(impl, o.device)
     h = Hit.miss(o)
@@ -339,7 +350,8 @@ def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
     t_clip = torch.minimum(_col(tmax, o)[:, 0], h.t + 1e-3)
     if scene.mesh is not None:
         from .mesh_bvh import intersect_mesh
-        h = merge(h, intersect_mesh(scene.mesh, o, d, tmin, t_clip))
+        h = merge(h, intersect_mesh(scene.mesh, o, d, tmin, t_clip,
+                                    impl=impl))
     if mc is not None:
         from .mesh_clusters import intersect_clusters
         mc_tmin = tmin
@@ -361,5 +373,6 @@ def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
     if scene.voxels is not None:
         from .dda import intersect_voxels
         t_clip = torch.minimum(t_clip, h.t + 1e-3)
-        h = merge(h, intersect_voxels(scene.voxels, o, d, tmin, t_clip))
+        h = merge(h, intersect_voxels(scene.voxels, o, d, tmin, t_clip,
+                                      impl=impl))
     return h

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel, so a run can show the main path went through the kernels.
-LAUNCHES = {"trace": 0, "post": 0, "clusters": 0}
+LAUNCHES = {"trace": 0, "post": 0, "clusters": 0, "bvh": 0, "dda": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,12 +50,27 @@ _SIGNATURES = {
                                 _F, _F, _F, _P], _I),
     "yacge_cluster_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P], _I),
+    "yacge_bvh_launch": ([_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                          _P, _P], _I),
+    "yacge_dda_launch": ([_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+                          _P, _P, _P, _P, _P], _I),
 }
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def warp_efficiency(lane) -> float:
+    """The share of a kernel's thread slots that do work, for a kernel that
+    runs ray i on thread i and loops each ray to its own end: the work of
+    each ray (a (P,) tensor) summed, over the slots its warps run (a warp
+    of 32 consecutive rays runs as long as its longest ray)."""
+    import torch
+    pad = torch.nn.functional.pad(lane, (0, -lane.shape[0] % 32))
+    slots = 32 * int(pad.view(-1, 32).amax(1).sum())
+    return int(lane.sum()) / slots if slots else 1.0
 
 
 def nvcc_path() -> str:

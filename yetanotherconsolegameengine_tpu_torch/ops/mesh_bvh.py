@@ -10,25 +10,33 @@ node whose box is hit) or along the skip link. A finished ray's cursor is
 ``n_nodes``; later rounds leave it there and change nothing.
 
 ``build_mesh_bvh`` is the JAX package's numpy binned-SAH build, returning
-tensors. ``intersect_mesh`` is torch code on the rays' device: the walk
-waits on the host only every ``CHECK_EVERY`` rounds to see whether rays are
-still walking, and once at most a quarter of a batch is, it gathers the
-walking lanes (``nonzero``) into a narrower batch and walks on there, as the
-JAX code narrows to P/4 and P/16. Per-lane arithmetic does not depend on
-the other lanes, so the result equals the uncompacted walk bit for bit.
-The LBVH that the scene builder makes (ops/lbvh.py) has the same layout.
+tensors. ``MeshBVH.rows`` packs the node rows once per tree.
+``intersect_mesh`` launches the walk kernel (``csrc/bvh_kernel.cu``, one
+thread a ray, one launch a sweep, no host wait) for CUDA tensors and runs
+the plain walk for CPU tensors. The plain walk is torch code on the rays'
+device: it waits on the host only every ``CHECK_EVERY`` rounds to see
+whether rays are still walking, and once at most a quarter of a batch is,
+it gathers the walking lanes (``nonzero``) into a narrower batch and walks
+on there, as the JAX code narrows to P/4 and P/16. Per-lane arithmetic
+does not depend on the other lanes, so the result equals the uncompacted
+walk bit for bit, and the kernel, which runs each lane's rounds in one
+thread in the same operation order, equals it too. The LBVH that the scene
+builder makes (ops/lbvh.py) has the same layout.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from ..devices import resolve_impl
 from ..scene._tensors import Tensors
-from .intersect import INF, Hit, _col, _safe_div, cross3, dot3
+from . import kernels
+from .intersect import INF, Hit, _col, _lanes, _safe_div, cross3, dot3
 
 LEAF_K = 4          # triangles per leaf (and per node row)
 SAH_BINS = 16
@@ -38,8 +46,8 @@ CHECK_EVERY = 8
 # is still walking.
 COMPACT_MIN = 1024
 
-# Work counters of the walk (sweeps, rounds, host waits, compactions), for
-# the frame profiler; ``STATS.clear()`` resets them.
+# Work counters of the walk (sweeps; the plain walk's rounds, host waits
+# and compactions), for the frame profiler; ``STATS.clear()`` resets them.
 STATS = collections.Counter()
 
 
@@ -65,6 +73,13 @@ class MeshBVH(Tensors):
     @property
     def n_nodes(self) -> int:
         return self.bmin.shape[0]
+
+    @functools.cached_property
+    def rows(self) -> torch.Tensor:
+        """``node_rows`` of this tree, packed at first use and kept: both
+        walks read them, and a rebuilt or moved tree is a new ``MeshBVH``
+        with rows of its own."""
+        return node_rows(self)
 
     @property
     def n_tris(self) -> int:
@@ -225,8 +240,11 @@ def node_rows(bvh: MeshBVH) -> torch.Tensor:
     return torch.cat([head, tri_rows[ti].reshape(-1, LEAF_K * 13)], 1)
 
 
-def _walk(rows: torch.Tensor, st: dict, n_nodes: int) -> None:
-    """One lockstep round on the lanes of ``st``, in place."""
+def _walk(rows: torch.Tensor, st: dict, n_nodes: int,
+          work: dict = None) -> None:
+    """One lockstep round on the lanes of ``st``, in place. ``work``, when
+    given, sums the round's node visits and triangle tests and marks the
+    rows it reads (``walk_work``)."""
     node, t, o, d, inv, t_lo = (st[k] for k in ("node", "t", "o", "d",
                                                 "inv", "tlo"))
     active = node < n_nodes
@@ -250,9 +268,14 @@ def _walk(rows: torch.Tensor, st: dict, n_nodes: int) -> None:
     v = dot3(dd, q) * inv_det
     tt = dot3(e2, q) * inv_det
     k = torch.arange(LEAF_K, device=o.device, dtype=torch.float32)
-    valid = ((box_hit & is_leaf)[:, None] & (k[None] < count[:, None])
-             & (det.abs() >= 1e-8) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-             & (u + v <= 1.0) & (tt >= t_lo[:, None]) & (tt < t[:, None]))
+    in_leaf = (box_hit & is_leaf)[:, None] & (k[None] < count[:, None])
+    valid = (in_leaf & (det.abs() >= 1e-8) & (u >= 0.0) & (u <= 1.0)
+             & (v >= 0.0) & (u + v <= 1.0) & (tt >= t_lo[:, None])
+             & (tt < t[:, None]))
+    if work is not None:
+        work["visits"] += active
+        work["tri_tests"] += in_leaf.sum(1)
+        work["rows"][node[active]] = True
     tt = torch.where(valid, tt, INF)
     # The first of equal minima over the K in-row triangles.
     kk = tt.argmin(1, keepdim=True)
@@ -271,23 +294,34 @@ def _walk(rows: torch.Tensor, st: dict, n_nodes: int) -> None:
 _OUT = ("node", "t", "wn", "wm", "u", "v")
 
 
-def intersect_mesh(bvh: MeshBVH, o, d, tmin, tmax,
-                   compact: bool = True) -> Hit:
+def _start(o, d, tmin, tmax) -> dict:
+    """The plain walk's lanes before the first round."""
+    P = o.shape[0]
+    z = torch.zeros(P, device=o.device)
+    return dict(node=torch.zeros(P, dtype=torch.int64, device=o.device),
+                t=_col(tmax, o)[:, 0], wn=torch.zeros((P, 3), device=o.device),
+                wm=z, u=z, v=z, o=o, d=d,
+                inv=_safe_div(torch.ones_like(d), d), tlo=_col(tmin, o)[:, 0])
+
+
+def intersect_mesh(bvh: MeshBVH, o, d, tmin, tmax, compact: bool = True,
+                   impl=None) -> Hit:
     """Nearest hit over the BVH's triangles. o/d: (P, 3); tmin/tmax scalar
     or (P,). Double-sided, the normal flipped against the ray; a hit needs
     ``tmin <= t < tmax``, and a later leaf only wins when strictly nearer.
-    ``compact=False`` walks every lane to the end (the reference the
-    compacted walk equals)."""
-    P = o.shape[0]
-    n_nodes = bvh.n_nodes
-    rows = node_rows(bvh)
-    t_hi = _col(tmax, o)[:, 0]
-    z = torch.zeros(P, device=o.device)
-    full = dict(node=torch.zeros(P, dtype=torch.int64, device=o.device),
-                t=t_hi, wn=torch.zeros((P, 3), device=o.device), wm=z, u=z,
-                v=z, o=o, d=d, inv=_safe_div(torch.ones_like(d), d),
-                tlo=_col(tmin, o)[:, 0])
+    ``impl``: "kernel" (the walk kernel, one launch), "plain" (the torch
+    walk), None: from the rays' device. ``compact=False`` walks every lane
+    of the plain walk to the end (the reference the compacted walk
+    equals)."""
+    impl = resolve_impl(impl, o.device)
     STATS["sweeps"] += 1
+    if impl == "kernel":
+        return walk(bvh.rows, o.contiguous(), d.contiguous(),
+                    _lanes(tmin, o), _lanes(tmax, o))
+    n_nodes = bvh.n_nodes
+    rows = bvh.rows
+    full = _start(o, d, tmin, tmax)
+    t_hi = full["t"]
     cur, lanes = full, None
     while True:
         for _ in range(CHECK_EVERY):
@@ -318,3 +352,60 @@ def intersect_mesh(bvh: MeshBVH, o, d, tmin, tmax,
 def _write_back(full: dict, cur: dict, lanes) -> None:
     for k in _OUT:
         full[k] = full[k].index_copy(0, lanes, cur[k])
+
+
+def walk(rows, o, d, tmin, tmax) -> Hit:
+    """Launch the walk kernel: ``rows`` (N, 8 + 13 * LEAF_K) f32 node rows,
+    o/d (P, 3) f32, tmin/tmax (P,) f32, all contiguous on one CUDA device.
+    Returns ``intersect_mesh``'s ``Hit``; an empty batch launches
+    nothing."""
+    P = o.shape[0]
+    kernels.require(rows, "rows", torch.float32)
+    if rows.dim() != 2 or rows.shape[1] != 8 + 13 * LEAF_K:
+        raise ValueError(f"rows must be (N, {8 + 13 * LEAF_K}), got "
+                         f"{tuple(rows.shape)}")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must start on a 16-byte boundary")
+    for name, x, shape in (("o", o, (P, 3)), ("d", d, (P, 3)),
+                           ("tmin", tmin, (P,)), ("tmax", tmax, (P,))):
+        kernels.require(x, name, torch.float32, shape)
+    dev = o.device
+    t = torch.empty(P, device=dev)
+    n = torch.empty((P, 3), device=dev)
+    u = torch.empty(P, device=dev)
+    v = torch.empty(P, device=dev)
+    mat = torch.empty(P, dtype=torch.int32, device=dev)
+    hit = torch.empty(P, dtype=torch.bool, device=dev)
+    if P:
+        err = kernels.library().yacge_bvh_launch(
+            rows.data_ptr(), rows.shape[0], o.data_ptr(), d.data_ptr(),
+            tmin.data_ptr(), tmax.data_ptr(), P, t.data_ptr(), n.data_ptr(),
+            u.data_ptr(), v.data_ptr(), mat.data_ptr(), hit.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        kernels.check(err, "BVH walk kernel")
+        kernels.LAUNCHES["bvh"] += 1
+    return Hit(t=t, n=n, u=u, v=v, mat=mat, hit=hit)
+
+
+def walk_work(bvh: MeshBVH, o, d, tmin, tmax) -> dict:
+    """The work these rays' walks need, counted by running the plain walk
+    uncompacted to its end: node visits (active lanes summed over rounds)
+    and the most of any ray, triangle tests (the count triangles of each
+    leaf whose box is hit), the distinct rows read; with the lockstep
+    rounds and the share of a warp's visit slots that visit
+    (``kernels.warp_efficiency``)."""
+    n_nodes = bvh.n_nodes
+    st = _start(o, d, tmin, tmax)
+    lanes = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
+    work = dict(visits=lanes, tri_tests=lanes.clone(),
+                rows=torch.zeros(n_nodes, dtype=torch.bool, device=o.device))
+    rounds = 0
+    while bool((st["node"] < n_nodes).any()):
+        _walk(bvh.rows, st, n_nodes, work)
+        rounds += 1
+    v = work["visits"]
+    return {"visits": int(v.sum()),
+            "max_visits": int(v.max()) if v.numel() else 0,
+            "tri_tests": int(work["tri_tests"].sum()),
+            "rows": int(work["rows"].sum()), "rounds": rounds,
+            "warp_efficiency": kernels.warp_efficiency(v)}

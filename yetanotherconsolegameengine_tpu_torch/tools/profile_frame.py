@@ -5,7 +5,8 @@
         [--ss 1]
 
 Renders a scene of ``SCENE_BUILDERS`` (by default the dragon at 240x135
-cells; ss=1 unless ``--ss`` says otherwise, default ``RenderConfig``), or
+cells; ss=1 unless ``--ss`` says otherwise, default ``RenderConfig``; a
+dynamic scene as its frame at t = 0), or
 with ``--scene minecraft_like`` the default streamed island
 (``world/volume_scene.py``, settled, one update, seen from 6 above the
 spawn at pitch -0.35) and with
@@ -21,20 +22,22 @@ with the kernels (``impl="kernel"``) after three warm-up frames:
 2. ``WALL_FRAMES`` frames with the profiler off: ms/frame by a
    synchronised host clock and by CUDA events, rays/frame, the kernel
    wrappers' launches per frame and, for a BVH-mesh or voxel scene, the
-   walk's or the DDA's sweeps per frame with its rounds, host waits and
-   compactions per sweep (``mesh_bvh.STATS``, ``dda.STATS``);
+   walk's or the DDA's sweeps per frame (``mesh_bvh.STATS``,
+   ``dda.STATS``) beside its kernel's launches (one a sweep, no host wait
+   inside it);
 3. ``PROF_FRAMES`` frames under ``torch.profiler`` with a range around each
    stage (K2, tile cull, the rest of ``intersect_clusters``, K3, the BVH
-   walk, the voxel DDA, shadow rays, compaction, post): device busy time
-   (the union of device operations)
-   split by the innermost stage that encloses each operation, device
-   kernels and copies per frame, and the host time inside each stage.
-   The profiler can lose the records of launches made back to back, so
-   the records of K1, K2 and K3 are counted against the launches their
-   wrappers counted (``kernels.LAUNCHES``); a pass that lost any is
-   profiled again, frame by frame with a synchronise after each, up to
-   ``TRIES`` passes in all. If every pass lost records, no busy or idle
-   share is printed and the tool exits non-zero with the counts.
+   walk kernel, the voxel DDA kernel, shadow rays, compaction, post):
+   device busy time (the union of device operations) split by the
+   innermost stage that encloses each operation, device kernels and
+   copies per frame, and the host time inside each stage. The profiler
+   can lose the records of launches made back to back, so the records of
+   K1, K2, K3 and the walk and DDA kernels are counted against the
+   launches their wrappers counted (``kernels.LAUNCHES``); a pass that
+   lost any is profiled again, frame by frame with a synchronise after
+   each, up to ``TRIES`` passes in all. If every pass lost records, no
+   busy or idle share is printed and the tool exits non-zero with the
+   counts.
 
 The device idle share is 1 - busy / wall, given both for the profiled
 frames' own wall and for step 2's profiler-off wall (device work per frame
@@ -64,8 +67,8 @@ STAGES = (
     ("mesh_clusters._tile_cull", "tile cull + list sort (torch)"),
     ("mesh_clusters.intersect_clusters",
      "prefilter, binning sort, unsort, resolve (torch)"),
-    ("mesh_bvh.intersect_mesh", "BVH walk (torch)"),
-    ("dda.intersect_voxels", "voxel DDA (torch)"),
+    ("mesh_bvh.intersect_mesh", "BVH walk kernel"),
+    ("dda.intersect_voxels", "voxel DDA kernel"),
     ("trace.transmittance_to_lights", "shadow rays outside the sweep (torch)"),
     ("trace._compact", "compaction (torch)"),
     ("post_kernel.post", "K1 post"),
@@ -79,13 +82,35 @@ PEAK_BYTES = 3.35e12
 # fp32 operations per K3 lane-test: six 3-term dot products (18 mul, 15
 # add), the division, u and v (2 mul, 2 add), 1-u-v (2 sub).
 K3_OPS = 40
+# Operations of the walk kernel per node visit (the slab test: 6 sub, 6
+# mul, 6 min/max, 4 in the two reductions, 3 compares) and per triangle
+# test (Moller-Trumbore: two cross products 18, four dot products 20 with
+# their 3 scalings, the guarded 1/det 3, o - a 3, 10 compares and u + v);
+# of the DDA kernel per round (t + eps 1, the point 6, the cell 9 with its
+# division and floor, its clamps and bounds 10, the three boundaries 15
+# with their int adds, the parallel-axis selects 3, the minimum 2, the
+# distance jump 4, the two maxima 2). Integer work is counted beside the
+# fp32 work against the fp32 peak.
+WALK_SLAB_OPS = 25
+WALK_TRI_OPS = 57
+DDA_ROUND_OPS = 52
+# Bytes a sweep must move per ray: o, d, tmin and tmax in (32); out t, n,
+# u, v, mat and hit (29) for the walk, and the same for the DDA (its u and
+# v one zero plane: 25); and once each row (240 bytes) or cell (2 bytes)
+# that the rays read.
+WALK_RAY_BYTES = 32 + 29
+DDA_RAY_BYTES = 32 + 25
+ROW_BYTES = 240
+CELL_BYTES = 2
 # The device kernels of which each launch counted in ``kernels.LAUNCHES``
 # runs exactly one (ops/csrc): K2's kernel, K1's cooperative kernel or its
 # band launch B, and K3's epilogue (its sweep is skipped when no list has
 # an entry).
 KERNEL_RECORDS = {"trace": ("trace_kernel",),
                   "post": ("post_persistent", "post_band_tail"),
-                  "clusters": ("epilogue_kernel",)}
+                  "clusters": ("epilogue_kernel",),
+                  "bvh": ("bvh_walk_kernel",),
+                  "dda": ("dda_march_kernel",)}
 TRIES = 3
 
 
@@ -123,6 +148,21 @@ def k3_work(args, ref) -> dict:
     bound, by = roofline(tests * K3_OPS, nbytes)
     return {"tiles": n_tiles, "lane_tests": tests, "bytes": nbytes,
             "bound_ms": bound, "bound_by": by}
+
+
+def walk_bound(work: dict, rays: int):
+    """(least ms, bound by) of a walk sweep whose work ``mesh_bvh.walk_work``
+    counted on ``rays`` rays."""
+    return roofline(work["visits"] * WALK_SLAB_OPS
+                    + work["tri_tests"] * WALK_TRI_OPS,
+                    rays * WALK_RAY_BYTES + work["rows"] * ROW_BYTES)
+
+
+def dda_bound(work: dict, rays: int):
+    """(least ms, bound by) of a DDA sweep whose work ``dda.march_work``
+    counted on ``rays`` rays."""
+    return roofline(work["rounds"] * DDA_ROUND_OPS,
+                    rays * DDA_RAY_BYTES + work["cells"] * CELL_BYTES)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -347,7 +387,10 @@ def main(argv=None) -> int:
                              impl="kernel")
         r.set_camera((vs.pos[0], vs.pos[1] + 6.0, vs.pos[2]), 0.0, -0.35)
     else:
-        scene = SCENE_BUILDERS[args.scene]().to(dev)
+        scene = SCENE_BUILDERS[args.scene]()
+        if hasattr(scene, "at_time"):   # a dynamic scene: its frame at t = 0
+            scene = scene.at_time(0.0)
+        scene = scene.to(dev)
         r = RaytraceRenderer(scene, W, H, args.ss, device=dev,
                              impl="kernel")
     r.render_many(3)
@@ -368,16 +411,14 @@ def main(argv=None) -> int:
         f"{ev_ms:.4f} ms/frame by CUDA events; "
         f"{int(out.rays_traced)} rays/frame (last frame); kernel wrapper "
         f"launches per frame {launches}")
-    for label, mod in (("BVH walk", mesh_bvh), ("voxel DDA", dda)):
+    for label, mod, key in (("BVH walk", mesh_bvh, "bvh"),
+                            ("voxel DDA", dda, "dda")):
         st = dict(mod.STATS)
         if not st:
             continue
-        sw = st["sweeps"]
-        lines.append(
-            f"{label}: {sw / n:.1f} sweeps/frame; per sweep "
-            f"{st['rounds'] / sw:.1f} rounds, {st['waits'] / sw:.1f} host "
-            f"waits, {st.get('compactions', 0) / sw:.2f} compactions "
-            f"(a wait every {mod.CHECK_EVERY} rounds)")
+        lines.append(f"{label}: {st['sweeps'] / n:.1f} sweeps/frame, "
+                     f"{launches[key]:.1f} kernel launches/frame (one a "
+                     f"sweep, no host wait inside it)")
 
     # 3. Profiler on, with stage ranges; every launch's record kept.
     n = args.prof_frames
