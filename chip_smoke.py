@@ -40,13 +40,17 @@ Phases (one line each; any failure raises and exits non-zero):
      ``ops/mesh_bvh.py::intersect_mesh``) against the plain walk on the
      card, bit for bit (t, n, u, v, mat, hit), at 160x180 rays a case: the
      bunny's primary rays and bounce rays from their hits, rays at the
-     ``make_knot`` LBVH, ``exhibit_ring``'s primary and bounce rays at its
-     glass hero mesh; then every walk sweep of an ``exhibit_ring`` frame at
-     160x90; the bunny's primary rays against the CPU; per case the
-     kernel's device time and the sweep's CUDA-event time, the work the
-     rays need (node visits, triangle tests, rows read, the most visits of
-     a ray, the share of a warp's visit slots used) and the least time;
-     the plain walk's time on the bunny's primary rays
+     ``make_knot`` LBVH and at a 15,360-triangle knot's LBVH (8,191 nodes,
+     more headers than the walk stages), ``exhibit_ring``'s
+     primary and bounce rays at its glass hero mesh; then every walk sweep
+     of an ``exhibit_ring`` frame at 160x90; the bunny's primary rays
+     against the CPU; per case the kernel's device time and the sweep's
+     CUDA-event time, the work the rays need (node visits, triangle tests,
+     rows read, the most visits of a ray, the share of a warp's visit
+     slots used), the least time and the launch (shared bytes, headers
+     staged, blocks, blocks an SM: every header staged where the table
+     fits, the large tree's tail read through L1); the plain walk's time
+     on the bunny's primary rays
  12. the ``glass_gem`` and ``texture_test`` goldens on the card (48x28
      cells, 4 frames, kernels), the post kernel launched
  13. the bunny at 160x90 cells, ss=1 (28,800 primary lanes, its LBVH built
@@ -187,7 +191,7 @@ from yetanotherconsolegameengine_tpu_torch.scene.mesh_loader import make_knot
 from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import (
     FORCED_SCENE_BUILDERS)
 from yetanotherconsolegameengine_tpu_torch.tools.profile_frame import (
-    cuda_ms, dda_bound, device_ms, k3_work, roofline, walk_bound)
+    TRIES, cuda_ms, dda_bound, device_ms, k3_work, roofline, walk_bound)
 from yetanotherconsolegameengine_tpu_torch.utils.profiling import timed
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -319,10 +323,18 @@ def kernel_ms(fn, reps: int, launches: int = 1) -> float:
     """Device time of one call of a wrapper that launches ``launches``
     kernels: the mean duration of the launches ``device_ms`` records over
     ``reps`` calls, times ``launches`` (the profiler can lose a launch's
-    record)."""
-    ms, ops = device_ms(fn, reps)
-    assert 0 < ops <= launches, f"{ops} device operations a call"
-    return ms / ops * launches
+    record). A pass that kept no record is profiled again, up to
+    ``TRIES`` passes; if none kept one, the call is timed by CUDA events
+    (launch gaps included) and a line says so."""
+    for _ in range(TRIES):
+        ms, ops = device_ms(fn, reps)
+        assert ops <= launches, f"{ops} device operations a call"
+        if ops > 0:
+            return ms / ops * launches
+    ms = cuda_ms(fn, reps)
+    print(f"  the profiler kept no record in {TRIES} passes: "
+          f"{ms:.5f} ms by CUDA events", flush=True)
+    return ms
 
 
 def post_inputs(packed, w: int, h: int, dev, cfg=DEFAULT_CONFIG):
@@ -422,9 +434,9 @@ def walk_cases(dev, w: int, h: int) -> dict:
     """The walk kernel's inputs, {name: (bvh, o, d, tmin, tmax)} on
     ``dev``: the bunny's primary rays at w x h and bounce rays from their
     hits; w * h rays from a seeded ring of origins around the ``make_knot``
-    LBVH aimed at jittered triangle corners; ``exhibit_ring``'s primary
-    rays at t = 0 against its glass hero mesh and bounce rays from
-    them."""
+    LBVH aimed at jittered triangle corners, and the same at a
+    15,360-triangle knot's LBVH; ``exhibit_ring``'s primary rays at t = 0
+    against its glass hero mesh and bounce rays from them."""
     cases = {}
     for name in ("bunny", "exhibit_ring"):
         scene = SCENE_BUILDERS[name]()
@@ -435,22 +447,26 @@ def walk_cases(dev, w: int, h: int) -> dict:
                                        impl="plain")
         cases[f"{name}_primary"] = (scene.mesh, o, d, 1e-3, INF)
         cases[f"{name}_bounce"] = (scene.mesh, *bounce_rays(o, d, prim))
-    knot = make_knot()
-    soup = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
-            (knot[:, 0], knot[:, 1], knot[:, 2],
-             np.arange(len(knot), dtype=np.int32) % 3)]
-    rs = np.random.RandomState(1)
-    P = w * h
-    center = knot.reshape(-1, 3).mean(0)
-    ring = rs.randn(P, 3)
-    o = center + 4.0 * ring / np.linalg.norm(ring, axis=1, keepdims=True)
-    aim = knot[rs.randint(0, len(knot), P), rs.randint(0, 3, P)]
-    d = aim + 0.1 * rs.randn(P, 3) - o
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    cases["knot_lbvh"] = (lbvh.build_lbvh(*soup),
-                          torch.from_numpy(o.astype(np.float32)).to(dev),
-                          torch.from_numpy(d.astype(np.float32)).to(dev),
-                          1e-3, INF)
+    # make_knot's LBVH (3,840 triangles, 2,047 nodes) and a 15,360-triangle
+    # knot's (8,191 nodes: 262 KB of headers, more than the 128 KB the walk
+    # stages in shared memory, so it reads the rest through L1).
+    for name, knot in (("knot_lbvh", make_knot()),
+                       ("large_lbvh", make_knot(seg_u=640))):
+        soup = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+                (knot[:, 0], knot[:, 1], knot[:, 2],
+                 np.arange(len(knot), dtype=np.int32) % 3)]
+        rs = np.random.RandomState(1)
+        P = w * h
+        center = knot.reshape(-1, 3).mean(0)
+        ring = rs.randn(P, 3)
+        o = center + 4.0 * ring / np.linalg.norm(ring, axis=1, keepdims=True)
+        aim = knot[rs.randint(0, len(knot), P), rs.randint(0, 3, P)]
+        d = aim + 0.1 * rs.randn(P, 3) - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        cases[name] = (lbvh.build_lbvh(*soup),
+                       torch.from_numpy(o.astype(np.float32)).to(dev),
+                       torch.from_numpy(d.astype(np.float32)).to(dev),
+                       1e-3, INF)
     return cases
 
 
@@ -1846,7 +1862,18 @@ def main() -> int:
     walk_in = walk_cases(dev, HI_W, HI_H)
     walk_res = sweep_kernel_cases(
         walk_in, "bvh", mesh_bvh.intersect_mesh, mesh_bvh.walk,
-        lambda bvh: (bvh.rows,), mesh_bvh.walk_work, walk_bound)
+        lambda bvh: (bvh.heads, bvh.tris), mesh_bvh.walk_work, walk_bound)
+    # The launch of each case: headers staged whole where they fit, the
+    # large tree's overflow read through L1.
+    for name, (bvh, o, *_) in walk_in.items():
+        shape = mesh_bvh.walk_shape(bvh.n_nodes, o.shape[0], dev)
+        fits = bvh.n_nodes * mesh_bvh.HEAD_F * 4 <= shape["budget"]
+        assert (shape["n_shared"] == bvh.n_nodes) == fits, (name, shape)
+        walk_res[name]["launch"] = {k: shape[k] for k in (
+            "shared_bytes", "n_shared", "blocks", "blocks_per_sm")}
+        walk_res[name]["launch"]["nodes"] = bvh.n_nodes
+    assert any(r["launch"]["n_shared"] < r["launch"]["nodes"]
+               for r in walk_res.values()), "no case reads headers via L1"
     main_walk = walk_in["bunny_primary"]
     o, d = main_walk[1], main_walk[2]
     walk_cpu = hit_contract(mesh_bvh.intersect_mesh(*main_walk),
@@ -1865,9 +1892,10 @@ def main() -> int:
           f"(ms: kernel device time | the sweep by CUDA events; bound and "
           f"share; work: node visits, triangle tests, rows read, lockstep "
           f"rounds, the most visits of a ray, the share of a warp's visit "
-          f"slots used): {json.dumps(walk_res)}; every walk sweep of an "
-          f"exhibit_ring frame at {FB_W}x{FB_H} ({len(ring_calls)} sweeps, "
-          f"the glass hero mesh) bit-equal: "
+          f"slots used; launch: shared bytes, headers staged, blocks, "
+          f"blocks an SM, nodes): {json.dumps(walk_res)}; every walk sweep "
+          f"of an exhibit_ring frame at {FB_W}x{FB_H} ({len(ring_calls)} "
+          f"sweeps, the glass hero mesh) bit-equal: "
           f"{json.dumps(ring_bits)}; bunny primary rays card vs CPU "
           f"{json.dumps(walk_cpu)}; bunny primary: kernel {wm['ms']:.4f} ms "
           f"| {wm['event_ms']:.4f} ms a sweep vs the plain walk "

@@ -717,12 +717,15 @@ def _first(case, P):
     return (grid, o[:P].contiguous(), d[:P].contiguous(), *cut)
 
 
-@pytest.mark.parametrize("P", [0, 1, 31, 4097])
+@pytest.mark.parametrize("P", [0, 1, 7, 31, 4097])
 @pytest.mark.parametrize("name", ["bunny_primary", "bunny_bounce",
-                                  "knot_lbvh", "exhibit_ring_primary"])
+                                  "knot_lbvh", "large_lbvh",
+                                  "exhibit_ring_primary"])
 def test_walk_kernel_equals_the_plain_walk_bit_for_bit(dev, name, P):
     """One launch a sweep (none for an empty batch), t, n, u, v, mat and
-    hit bit-equal to the plain walk on the card."""
+    hit bit-equal to the plain walk on the card. 7 rays leave the last
+    lane group of their warp without a ray; the large LBVH's 8,191
+    headers overflow the staging budget, so its tail is read through L1."""
     args = _first(_sweep_cases(dev, "walk")[name], P)
     before = kernels.LAUNCHES["bvh"]
     got = mesh_bvh.intersect_mesh(*args)
@@ -745,6 +748,79 @@ def test_dda_kernel_equals_the_plain_loop_bit_for_bit(dev, name, P):
     assert res["rays"] == P
 
 
+@pytest.mark.parametrize("tree", ["twins", "one_leaf"])
+def test_walk_kernel_ties_and_the_inf_corner(dev, tree):
+    """Bit-equal to the plain walk where the lane group's reduction decides:
+    every triangle twice in its leaf (equal t: the first twin wins), and a
+    tree that is one leaf under a tmax of inf (a ray that misses takes INF
+    there with triangle 0's data)."""
+    knot = make_knot(seg_u=40, seg_v=6)
+    a, b, c = (knot[:, i] for i in range(3))
+    if tree == "twins":
+        a, b, c = (np.repeat(x, 2, axis=0) for x in (a, b, c))
+    else:
+        a, b, c = a[:3], b[:3], c[:3]
+    bvh = mesh_bvh.build_mesh_bvh(a, b, c, np.arange(len(a), dtype=np.int32))
+    rs = np.random.RandomState(3)
+    cent = (a + b + c) / 3
+    o = rs.randn(2048, 3) * (3.0 if tree == "twins" else 1.0)
+    d = cent[rs.randint(0, len(cent), 2048)] + 0.05 * rs.randn(2048, 3) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (torch.from_numpy(x.astype(np.float32)).to(dev) for x in (o, d))
+    tmax = INF if tree == "twins" else float("inf")
+    card = bvh.to(dev)
+    got = mesh_bvh.intersect_mesh(card, o, d, 1e-3, tmax)
+    want = mesh_bvh.intersect_mesh(card, o, d, 1e-3, tmax, impl="plain")
+    res = bit_contract(got, want)
+    if tree == "twins":
+        assert res["hits"] > 100
+        assert (want.mat[want.hit] % 2 == 0).all()
+    else:
+        assert card.n_nodes == 1
+        assert 0 < int((want.t == INF).sum()) < 2048
+
+
+def test_walk_kernel_stages_every_header_that_fits(dev):
+    """The launch shape on the card: every header of a tree that fits in the
+    staging budget staged, the first that fit of the large LBVH's; the grid
+    at most SMs x resident blocks."""
+    props = torch.cuda.get_device_properties(dev)
+    for name, (bvh, o, *_) in _sweep_cases(dev, "walk").items():
+        shape = mesh_bvh.walk_shape(bvh.n_nodes, o.shape[0], dev)
+        assert shape["sms"] == props.multi_processor_count
+        assert shape["n_shared"] == mesh_bvh.shared_nodes(bvh.n_nodes,
+                                                          shape["budget"])
+        assert shape["blocks_per_sm"] >= 1
+        assert shape["blocks"] == mesh_bvh.grid_blocks(
+            o.shape[0], shape["sms"], shape["blocks_per_sm"],
+            32 // shape["lanes"])
+        assert (shape["n_shared"] < bvh.n_nodes) == (name == "large_lbvh")
+
+
+def test_walk_launch_refused_for_shared_memory_raises(dev):
+    """A launch that asks for more shared memory than a block may have is
+    refused before it runs, and the wrapper's check raises."""
+    bvh, o, d, lo, hi = _first(_sweep_cases(dev, "walk")["large_lbvh"], 64)
+    optin = mesh_bvh._limits(kernels.library(), dev.index, 0)[0]
+    out = [torch.empty(n, device=dev) for n in (64, 192, 64, 64)]
+    out += [torch.empty(64, dtype=torch.int32, device=dev),
+            torch.empty(64, dtype=torch.bool, device=dev)]
+    lo, hi = torch.full((64,), 1e-3, device=dev), torch.full((64,), INF,
+                                                            device=dev)
+    err = kernels.library().yacge_bvh_launch(
+        bvh.heads.data_ptr(), bvh.tris.data_ptr(), bvh.n_nodes,
+        optin // 32 + 1, 1, o.data_ptr(), d.data_ptr(),
+        lo.data_ptr(), hi.data_ptr(), 64, *(x.data_ptr() for x in out),
+        torch.cuda.current_stream(dev).cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels.check(err, "BVH walk kernel")
+    # The refusal leaves nothing behind: the next sweep launches and agrees.
+    got = mesh_bvh.intersect_mesh(bvh, o, d, lo, hi)
+    bit_contract(got, mesh_bvh.intersect_mesh(bvh, o, d, lo, hi,
+                                              impl="plain"))
+
+
 def test_walk_and_dda_kernels_reject_bad_inputs(dev):
     """The wrappers take contiguous f32 (int16 cells) CUDA tensors only."""
     bvh, o, d, _, _ = _first(_sweep_cases(dev, "walk")["knot_lbvh"], 64)
@@ -753,16 +829,22 @@ def test_walk_and_dda_kernels_reject_bad_inputs(dev):
     lo = torch.full((64,), 1e-3, device=dev)
     hi = torch.full((64,), INF, device=dev)
     wide = torch.zeros((64, 6), device=dev)[:, :3]
-    rows = bvh.rows
+    heads, tris = bvh.heads, bvh.tris
+
+    def off16(x):
+        return torch.empty(x.numel() + 1, device=dev)[1:].view_as(x)
     for call, bad in (
-            (lambda x: mesh_bvh.walk(rows, x, d, lo, hi),
+            (lambda x: mesh_bvh.walk(heads, tris, x, d, lo, hi),
              [(o.cpu(), ValueError), (o.double(), TypeError),
               (wide, ValueError)]),
-            (lambda x: mesh_bvh.walk(x, o, d, lo, hi),
-             [(rows.cpu(), ValueError), (rows[:, :59], ValueError),
-              (rows[:, :59].contiguous(), ValueError),
-              (torch.empty(rows.numel() + 1, device=dev)[1:].view_as(rows),
-               ValueError)]),
+            (lambda x: mesh_bvh.walk(x, tris, o, d, lo, hi),
+             [(heads.cpu(), ValueError), (heads[:, :7], ValueError),
+              (heads[:, :7].contiguous(), ValueError), (bvh.rows, ValueError),
+              (off16(heads), ValueError)]),
+            (lambda x: mesh_bvh.walk(heads, x, o, d, lo, hi),
+             [(tris.cpu(), ValueError), (tris[1:], ValueError),
+              (tris[..., :13].contiguous(), ValueError),
+              (tris.transpose(0, 1), ValueError), (off16(tris), ValueError)]),
             (lambda x: dda.march(w.cells, w.origin, w.voxel_size, x, vd, lo,
                                  hi),
              [(vo.cpu(), ValueError), (vo.double(), TypeError),

@@ -3,13 +3,17 @@ themselves run only on the card: tests/test_torch_cuda.py).
 
 ``intersect_mesh`` and ``intersect_voxels`` take their plain loops for CPU
 tensors and refuse ``impl="kernel"`` there; ``intersect_scene`` hands its
-``impl`` to both sweeps; a tree's packed node rows are built once and equal
-``node_rows``; the DDA kernel's grid constants are the plain loop's. A
-numpy model of each kernel's thread (one ray's whole loop, float32 scalar
-arithmetic in the kernel's operation order) equals the plain version bit
-for bit and the JAX package's function within tests/test_torch_mesh_bvh.py's
-and tests/test_torch_dda.py's tolerances, and counts the work that
-``walk_work`` and ``march_work`` report."""
+``impl`` to both sweeps; a tree's packed node rows, headers and triangle
+records are built once and hold ``node_rows``' values; the walk kernel's
+launch arithmetic (headers staged, blocks) and the DDA kernel's grid
+constants are checked. A numpy model of each kernel's thread (one ray's
+whole loop, float32 scalar arithmetic in the kernel's operation order)
+equals the plain version bit for bit and the JAX package's function within
+tests/test_torch_mesh_bvh.py's and tests/test_torch_dda.py's tolerances,
+and counts the work that ``walk_work`` and ``march_work`` report; a model
+of the walk kernel's lane group (four lanes a ray, each with its own
+registers, the shuffle reduction over (t, k), headers read from a staged
+copy and the tree's table) equals the plain walk bit for bit."""
 
 import dataclasses
 from pathlib import Path
@@ -136,6 +140,86 @@ def walk_thread(rows, o, d, t_lo, t_hi):
     return t if hit else KINF, n, bu, bv, int(wm), hit, visits
 
 
+def _box(h, o, inv, t_lo, t):
+    """The slab test of header ``h`` against [t_lo, t]."""
+    ta = [(h[a] - o[a]) * inv[a] for a in range(3)]
+    tb = [(h[3 + a] - o[a]) * inv[a] for a in range(3)]
+    t0 = _max(_max(_min(ta[0], tb[0]), _min(ta[1], tb[1])), _min(ta[2], tb[2]))
+    t1 = _min(_min(_max(ta[0], tb[0]), _max(ta[1], tb[1])), _max(ta[2], tb[2]))
+    return bool(t0 <= t1 and t1 >= t_lo and t0 <= t)
+
+
+def walk_group(heads, staged, tris, o, d, t_lo, t_hi, lanes=4):
+    """csrc/bvh_kernel.cu's lane group on one ray: ``lanes`` lanes, each
+    with its own registers. Headers of nodes below ``len(staged)`` come
+    from ``staged`` (the block's shared-memory copy), the rest from
+    ``heads``. At a leaf whose box is hit, lane l tests triangles l,
+    l + lanes, ... (a serial first-of-equal-minima scan), the lanes
+    exchange (tk, k) by xor shuffles, and the winner's u, v, n and mat come
+    from its lane. Returns (t, n, u, v, mat, hit, visits, headers read
+    from ``heads``); every lane ends in the same state."""
+    inv = [_inv(x) for x in d]
+    L = range(lanes)
+    reg = [dict(t=t_hi, n=(F(0),) * 3, wm=F(0), u=F(0), v=F(0)) for _ in L]
+    node = visits = from_table = 0
+    while node < len(heads) and visits < len(heads):
+        visits += 1
+        if node < len(staged):
+            h = staged[node]
+        else:
+            h = heads[node]
+            from_table += 1
+        box = [_box(h, o, inv, t_lo, reg[k]["t"]) for k in L]
+        assert len(set(box)) == 1      # the lanes agree without exchange
+        leaf = h[7] > 0
+        if box[0] and leaf:
+            own = []                   # each lane's (best, k, u, v, n, mat)
+            for k in L:
+                best = None
+                for j in range(mesh_bvh.LEAF_K // lanes):
+                    kt = k + j * lanes
+                    rec = tris[node, kt]
+                    tt, u, v, ok = _mt(rec, o, d)
+                    tk = tt if (F(kt) < h[7] and ok and tt >= t_lo
+                                and tt < reg[k]["t"]) else KINF
+                    if j == 0 or tk < best[0]:
+                        best = (tk, kt, u, v, tuple(rec[9:12]), rec[12])
+                own.append(best)
+            key = [b[:2] for b in own]
+            off = 1
+            while off < lanes:         # __shfl_xor_sync over the group
+                key = [min_key(key[k], key[k ^ off]) for k in L]
+                off *= 2
+            assert len(set(key)) == 1
+            best, kk = key[0]
+            for k in L:
+                if best < reg[k]["t"]:
+                    _, _, u, v, n, m = own[kk % lanes]   # __shfl_sync
+                    reg[k] = dict(t=best, u=u, v=v, n=n, wm=m)
+        else:
+            for k in L:
+                if KINF < reg[k]["t"]:
+                    rec = tris[node, 0]
+                    _, u, v, _ = _mt(rec, o, d)
+                    reg[k] = dict(t=KINF, u=u, v=v, n=tuple(rec[9:12]),
+                                  wm=rec[12])
+        node = node + 1 if box[0] and not leaf else int(h[6])
+    r = reg[0]
+    assert len({tuple(_bits([x["t"], *x["n"], x["u"], x["v"], x["wm"]]))
+                for x in reg}) == 1
+    t, n = r["t"], list(r["n"])
+    hit = bool(t < t_hi)
+    if (n[0] * d[0] + n[1] * d[1]) + n[2] * d[2] >= 0:
+        n = [-x for x in n]
+    return (t if hit else KINF, n, r["u"], r["v"], int(r["wm"]), hit, visits,
+            from_table)
+
+
+def min_key(a, b):
+    """The kernel's merge of two lanes' (tk, k): the lexicographic least."""
+    return b if b[0] < a[0] or (b[0] == a[0] and b[1] < a[1]) else a
+
+
 def march_thread(cells, origin, h, o, d, t_lo, t_hi):
     """csrc/dda_kernel.cu's thread: (t, n, mat, hit, rounds)."""
     dims = cells.shape
@@ -200,6 +284,15 @@ def walk_model(bvh, o, d, tmin, tmax):
     with np.errstate(over="ignore", invalid="ignore"):   # IEEE, as on the card
         return [walk_thread(rows, o[i].numpy(), d[i].numpy(), lo[i], hi[i])
                 for i in range(len(o))]
+
+
+def group_model(bvh, o, d, tmin, tmax, n_shared=None, lanes=4):
+    heads, tris = bvh.heads.numpy(), bvh.tris.numpy()
+    staged = heads[:len(heads) if n_shared is None else n_shared].copy()
+    lo, hi = _lanes(tmin, len(o)), _lanes(tmax, len(o))
+    with np.errstate(over="ignore", invalid="ignore"):
+        return [walk_group(heads, staged, tris, o[i].numpy(), d[i].numpy(),
+                           lo[i], hi[i], lanes) for i in range(len(o))]
 
 
 def march_model(w, o, d, tmin, tmax):
@@ -267,7 +360,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     bvh, o, d, _, _ = _walk_case()
     lo, hi = torch.full((64,), 1e-3), torch.full((64,), INF)
     with pytest.raises(ValueError, match="CUDA"):
-        mesh_bvh.walk(bvh.rows, o, d, lo, hi)
+        mesh_bvh.walk(bvh.heads, bvh.tris, o, d, lo, hi)
     w, o, d, _, _ = _dda_case()
     lo, hi = torch.full((64,), 1e-3), torch.full((64,), INF)
     with pytest.raises(ValueError, match="CUDA"):
@@ -337,6 +430,92 @@ def test_a_rebuilt_tree_packs_its_own_rows():
         assert torch.equal(bvh.rows, mesh_bvh.node_rows(bvh))
 
 
+@pytest.mark.parametrize("tree", ["sah", "lbvh"])
+def test_heads_and_tris_hold_the_rows_values(tree):
+    """The walk kernel's split layout: a 32-byte header a node (the rows'
+    first 8 floats) and a 64-byte record a triangle (its 13 floats of the
+    row, 3 zeros), each 16-byte aligned, packed once a tree."""
+    a, b, c, m = knot()
+    bvh = (mesh_bvh.build_mesh_bvh(a, b, c, m) if tree == "sah" else
+           lbvh.build_lbvh(*(torch.from_numpy(x) for x in (a, b, c, m))))
+    N, K = bvh.n_nodes, mesh_bvh.LEAF_K
+    heads, tris = bvh.heads, bvh.tris
+    assert heads is bvh.heads and tris is bvh.tris
+    assert heads.shape == (N, 8) and tris.shape == (N, K, 16)
+    for x in (heads, tris):
+        assert x.dtype == torch.float32 and x.is_contiguous()
+        assert x.data_ptr() % 16 == 0
+    assert heads.stride(0) * 4 == 32 and tris.stride(1) * 4 == 64
+    assert torch.equal(heads, bvh.rows[:, :8])
+    assert torch.equal(tris[..., :13], bvh.rows[:, 8:].view(N, K, 13))
+    assert not tris[..., 13:].any()
+    moved = bvh.to("cpu")
+    assert moved.heads is not heads and moved.tris is not tris
+    assert torch.equal(moved.heads, heads) and torch.equal(moved.tris, tris)
+
+
+def test_a_rebuilt_tree_packs_its_own_heads_and_tris():
+    spin = SCENE_BUILDERS["spinning_mesh"]()
+    a, b = spin.at_time(0.0).mesh, spin.at_time(1.3).mesh
+    assert not torch.equal(a.tris, b.tris)
+    for bvh in (a, b):
+        assert torch.equal(bvh.heads, bvh.rows[:, :8])
+        assert torch.equal(bvh.tris[..., :13],
+                           bvh.rows[:, 8:].view(-1, mesh_bvh.LEAF_K, 13))
+
+
+def test_walk_kernel_layout_constants_match_the_source():
+    """The wrapper's layout and the kernel's: header and record sizes,
+    triangles a leaf; the default four lanes a ray."""
+    src = (CSRC / "bvh_kernel.cu").read_text()
+    for expr in (f"constexpr int kLeafK = {mesh_bvh.LEAF_K};",
+                 f"constexpr int kHead4 = {mesh_bvh.HEAD_F // 4};",
+                 f"constexpr int kTri4 = {mesh_bvh.TRI_F // 4};",
+                 "#define YACGE_BVH_LANES 4",
+                 "constexpr int kThreads = kBlockRays * kLanes;",
+                 "constexpr int kWarpRays = 32 / kLanes;"):
+        assert expr in src, expr
+
+
+# An H100 as yacge_bvh_limits reports it: 232,448 bytes of shared memory a
+# block may opt in to, 132 SMs, one block of 1,024 threads an SM (the
+# registers allow no second), four lanes a ray.
+H100 = {"sms": 132, "threads": 1024, "lanes": 4}
+
+
+def _h100_limits(lib, device, smem):
+    per_sm = min(1, 228 * 1024 // (smem + 1024))
+    return 232448, H100["sms"], per_sm, H100["threads"], H100["lanes"]
+
+
+@pytest.mark.parametrize("nodes,n_shared", [
+    (1023, 1023), (2047, 2047), (4095, 4095), (8191, 4096)])
+def test_walk_launch_shape(monkeypatch, nodes, n_shared):
+    """Headers staged whole up to ``HEAD_BUDGET`` (every tree the port's
+    scenes build: bunny 1,023, knot and museum 2,047, all_meshes 4,095
+    nodes), else the first 4,096 in pre-order; as many blocks as the card
+    holds (28,800 rays are 3,600 batches of a warp's 8 rays), fewer for a
+    small sweep: at least 4 batches a block."""
+    monkeypatch.setattr(mesh_bvh, "_limits", _h100_limits)
+    shape = mesh_bvh.walk_shape(nodes, 28800, torch.device("cuda", 0),
+                                lib="h100")
+    assert shape == dict(H100, budget=131072, n_shared=n_shared,
+                         shared_bytes=n_shared * 32, blocks=132,
+                         blocks_per_sm=1)
+    assert mesh_bvh.shared_nodes(nodes, mesh_bvh.HEAD_BUDGET) == n_shared
+    assert (n_shared * 32 > 48 * 1024) == (nodes > 1535)
+    for P, want in ((1, 1), (7, 1), (32, 1), (33, 2), (4097, 129),
+                    (8448, 132)):
+        got = mesh_bvh.walk_shape(nodes, P, "cuda:0", lib="h100")["blocks"]
+        assert got == want == mesh_bvh.grid_blocks(P, 132, 1, 8)
+    # A card whose blocks may opt in to less stages less.
+    monkeypatch.setattr(mesh_bvh, "_limits",
+                        lambda *a: (49152, *_h100_limits(*a)[1:]))
+    small = mesh_bvh.walk_shape(nodes, 28800, "cuda:0", lib="small")
+    assert small["budget"] == 49152
+    assert small["n_shared"] == min(nodes, 1536)
+
+
 def test_dda_kernel_grid_constants_equal_the_plain_loops():
     """What csrc/dda_kernel.cu derives from its arguments (the cells'
     shape, the origin and voxel-size tensors) is what ``_step`` reads."""
@@ -377,14 +556,27 @@ def _walk_inputs():
     rs = np.random.RandomState(2)
     lo = torch.from_numpy(rs.uniform(0.0, 0.5, 96).astype(np.float32))
     hi = torch.from_numpy(rs.uniform(1.0, 8.0, 96).astype(np.float32))
+    # Every knot triangle twice, the twins with materials 2i and 2i + 1:
+    # equal t in a leaf, where the first twin must win.
+    twins = mesh_bvh.build_mesh_bvh(
+        *(np.repeat(x, 2, axis=0) for x in (a, b, c)),
+        np.arange(2 * len(a), dtype=np.int32))
     return {"bunny": (bunny.mesh, o, d, 1e-3, INF),
             "knot_bounds": (tree, ko, kd, lo, hi),
+            "twins": (twins, ko[:48], kd[:48], 1e-3, INF),
+            # A tree of one leaf (3 triangles) under a tmax of inf: the
+            # root is a leaf, so a ray that misses takes INF there with
+            # triangle 0's data.
+            "one_leaf_inf": (mesh_bvh.build_mesh_bvh(a[:3], b[:3], c[:3],
+                                                     m[:3]),
+                             *rays_at((a[:3] + b[:3] + c[:3]) / 3, 16, 1,
+                                      spread=1.0), 1e-3, float("inf")),
             "parked": (tree, torch.full((4, 3), 2.9e30), kd[:4], 1e-3, INF),
             "inf_tmax": (tree, ko[:16], kd[:16], 1e-3, float("inf"))}
 
 
 @pytest.mark.parametrize("case", ["bunny", "knot_bounds", "parked",
-                                  "inf_tmax"])
+                                  "inf_tmax", "twins", "one_leaf_inf"])
 def test_walk_thread_model_equals_the_plain_walk(case):
     """One ray's whole walk in a thread, run to its own end, gives the
     lockstep walk's outputs bit for bit; its visits are what ``walk_work``
@@ -422,6 +614,46 @@ def test_walk_thread_model_matches_jax():
     assert same.mean() > 0.99
     np.testing.assert_array_equal(np.int32([x[4] for x in model])[hit][same],
                                   np.asarray(want.mat)[hit][same])
+
+
+@pytest.mark.parametrize("case,n_shared", [
+    ("bunny", None), ("knot_bounds", None), ("parked", None),
+    ("inf_tmax", None), ("twins", None), ("one_leaf_inf", None),
+    ("knot_bounds", 9), ("bunny", 200)])
+def test_lane_group_model_equals_the_plain_walk(case, n_shared):
+    """Four lanes a ray, the (tk, k) shuffle reduction and the headers split
+    between the staged copy and the table give the plain walk's outputs
+    bit for bit: on the bunny's LBVH, on the SAH tree (leaves of fewer than
+    four triangles) with per-ray bounds, on parked rays, with a tmax of inf,
+    on twinned triangles (equal t in a leaf: the first twin's material), on
+    a one-leaf tree under a tmax of inf, and with fewer headers staged
+    than the tree has."""
+    args = _walk_inputs()[case]
+    bvh = args[0]
+    model = group_model(*args, n_shared=n_shared)
+    _same_bits(model, mesh_bvh.intersect_mesh(*args), WALK_FIELDS)
+    assert [m[6] for m in model] == [m[6] for m in walk_model(*args)]
+    table_reads = sum(m[7] for m in model)
+    assert (table_reads > 0) == (n_shared is not None)
+    if case == "knot_bounds":
+        count = bvh.tri_count
+        assert ((count > 0) & (count < mesh_bvh.LEAF_K)).any()
+    if case == "twins":
+        mat = np.int32([m[4] for m in model])[[m[5] for m in model]]
+        assert len(mat) > 20 and (mat % 2 == 0).all()
+    if case == "one_leaf_inf":
+        # Rays that miss take INF at the leaf (hit, as INF < inf).
+        t = np.float32([m[0] for m in model])
+        assert bvh.n_nodes == 1 and 0 < (t == KINF).sum() < len(t)
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_lane_group_model_with_fewer_lanes(lanes):
+    """The kernel built with one or two lanes a ray (tools/walk_ladder.py's
+    steps): each lane scans its triangles serially, the same winners."""
+    args = _walk_inputs()["knot_bounds"]
+    model = group_model(*args, lanes=lanes)
+    _same_bits(model, mesh_bvh.intersect_mesh(*args), WALK_FIELDS)
 
 
 def _dda_inputs():

@@ -50,8 +50,9 @@ _SIGNATURES = {
                                 _F, _F, _F, _P], _I),
     "yacge_cluster_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P], _I),
-    "yacge_bvh_launch": ([_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                          _P, _P], _I),
+    "yacge_bvh_launch": ([_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
+                          _P, _P, _P, _P, _P], _I),
+    "yacge_bvh_limits": ([_I, _P], _I),
     "yacge_dda_launch": ([_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                           _P, _P, _P, _P, _P], _I),
 }

@@ -10,23 +10,27 @@ node whose box is hit) or along the skip link. A finished ray's cursor is
 ``n_nodes``; later rounds leave it there and change nothing.
 
 ``build_mesh_bvh`` is the JAX package's numpy binned-SAH build, returning
-tensors. ``MeshBVH.rows`` packs the node rows once per tree.
-``intersect_mesh`` launches the walk kernel (``csrc/bvh_kernel.cu``, one
-thread a ray, one launch a sweep, no host wait) for CUDA tensors and runs
-the plain walk for CPU tensors. The plain walk is torch code on the rays'
-device: it waits on the host only every ``CHECK_EVERY`` rounds to see
-whether rays are still walking, and once at most a quarter of a batch is,
-it gathers the walking lanes (``nonzero``) into a narrower batch and walks
-on there, as the JAX code narrows to P/4 and P/16. Per-lane arithmetic
-does not depend on the other lanes, so the result equals the uncompacted
-walk bit for bit, and the kernel, which runs each lane's rounds in one
-thread in the same operation order, equals it too. The LBVH that the scene
-builder makes (ops/lbvh.py) has the same layout.
+tensors. ``MeshBVH.rows`` packs the node rows once per tree, and
+``MeshBVH.heads`` / ``MeshBVH.tris`` split them for the walk kernel: a
+32-byte header a node and a 64-byte record a triangle.
+``intersect_mesh`` launches the walk kernel (``csrc/bvh_kernel.cu``, four
+threads a ray, the headers staged in shared memory, one launch a sweep,
+no host wait) for CUDA tensors and runs the plain walk for CPU tensors.
+The plain walk is torch code on the rays' device: it waits on the host
+only every ``CHECK_EVERY`` rounds to see whether rays are still walking,
+and once at most a quarter of a batch is, it gathers the walking lanes
+(``nonzero``) into a narrower batch and walks on there, as the JAX code
+narrows to P/4 and P/16. Per-lane arithmetic does not depend on the other
+lanes, so the result equals the uncompacted walk bit for bit, and the
+kernel, which runs each lane's rounds in one lane group in the same
+operation order, equals it too. The LBVH that the scene builder makes
+(ops/lbvh.py) has the same layout.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 import functools
 
@@ -45,6 +49,17 @@ CHECK_EVERY = 8
 # Narrow a batch of at least this many lanes once at most a quarter of it
 # is still walking.
 COMPACT_MIN = 1024
+# The walk kernel's node header (bmin, bmax, skip, count) and triangle
+# record (a, e1, e2, n, mat, 3 zeros), in f32s: 32 and 64 bytes.
+HEAD_F = 8
+TRI_F = 16
+# Batches of a warp's rays a walk block must have at least (``grid_blocks``).
+MIN_WARPS = 4
+# Bytes of node headers a walk block stages at most: half of an H100 SM's
+# 256 KB of L1 and shared memory, so that the other half keeps the triangle
+# records in L1. Every tree the port's scenes build (up to 4,095 nodes)
+# fits whole; staging a larger table whole measured slower (PERF.md).
+HEAD_BUDGET = 128 * 1024
 
 # Work counters of the walk (sweeps; the plain walk's rounds, host waits
 # and compactions), for the frame profiler; ``STATS.clear()`` resets them.
@@ -80,6 +95,20 @@ class MeshBVH(Tensors):
         walks read them, and a rebuilt or moved tree is a new ``MeshBVH``
         with rows of its own."""
         return node_rows(self)
+
+    @functools.cached_property
+    def heads(self) -> torch.Tensor:
+        """(N, HEAD_F) f32 node headers for the walk kernel, ``rows[:, :8]``
+        packed at first use and kept, like ``rows``."""
+        return self.rows[:, :HEAD_F].contiguous()
+
+    @functools.cached_property
+    def tris(self) -> torch.Tensor:
+        """(N, LEAF_K, TRI_F) f32 triangle records for the walk kernel: each
+        node's ``LEAF_K`` triangles of ``rows``, zero-padded to 64 bytes,
+        packed at first use and kept, like ``rows``."""
+        tri = self.rows[:, 8:].view(-1, LEAF_K, 13)
+        return torch.nn.functional.pad(tri, (0, TRI_F - 13)).contiguous()
 
     @property
     def n_tris(self) -> int:
@@ -316,7 +345,7 @@ def intersect_mesh(bvh: MeshBVH, o, d, tmin, tmax, compact: bool = True,
     impl = resolve_impl(impl, o.device)
     STATS["sweeps"] += 1
     if impl == "kernel":
-        return walk(bvh.rows, o.contiguous(), d.contiguous(),
+        return walk(bvh.heads, bvh.tris, o.contiguous(), d.contiguous(),
                     _lanes(tmin, o), _lanes(tmax, o))
     n_nodes = bvh.n_nodes
     rows = bvh.rows
@@ -354,18 +383,71 @@ def _write_back(full: dict, cur: dict, lanes) -> None:
         full[k] = full[k].index_copy(0, lanes, cur[k])
 
 
-def walk(rows, o, d, tmin, tmax) -> Hit:
-    """Launch the walk kernel: ``rows`` (N, 8 + 13 * LEAF_K) f32 node rows,
-    o/d (P, 3) f32, tmin/tmax (P,) f32, all contiguous on one CUDA device.
-    Returns ``intersect_mesh``'s ``Hit``; an empty batch launches
-    nothing."""
+def shared_nodes(n_nodes: int, budget: int) -> int:
+    """Headers the walk kernel stages in shared memory: all of them when
+    they fit in ``budget`` bytes, else the first that do, in DFS pre-order
+    (the kernel reads the rest through L1)."""
+    return min(n_nodes, budget // (HEAD_F * 4))
+
+
+def grid_blocks(n_rays: int, sms: int, blocks_per_sm: int,
+                warp_rays: int) -> int:
+    """Blocks of a walk launch: as many as the card holds at once, so each
+    block stages the headers once and its warps loop over batches of
+    ``warp_rays`` rays; fewer for a small sweep, so that each block has
+    ``MIN_WARPS`` batches or more to pay for its staging."""
+    batches = -(-n_rays // warp_rays)
+    return max(1, min(sms * blocks_per_sm, -(-batches // MIN_WARPS)))
+
+
+@functools.lru_cache(maxsize=None)
+def _limits(lib, device: int, smem: int) -> tuple:
+    """``yacge_bvh_limits`` of ``lib`` on CUDA device ``device``: (opt-in
+    shared bytes a block, SMs, blocks an SM at ``smem``, threads a block,
+    lanes a ray)."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = lib.yacge_bvh_limits(smem, out)
+    kernels.check(err, "BVH walk kernel occupancy query")
+    return tuple(out)
+
+
+def walk_shape(n_nodes: int, n_rays: int, device, lib=None) -> dict:
+    """The walk kernel's launch on ``device`` (``lib``: the kernel library,
+    ``kernels.library()`` by default): headers staged (``n_shared``) and
+    their bytes, blocks, blocks an SM, and what they come from: the
+    staging budget (``HEAD_BUDGET`` or the block's opt-in shared memory,
+    the smaller), the SMs, threads a block and lanes a ray."""
+    lib = kernels.library() if lib is None else lib
+    dev = torch.device(device).index
+    dev = torch.cuda.current_device() if dev is None else dev
+    optin, sms = _limits(lib, dev, 0)[:2]
+    budget = min(optin, HEAD_BUDGET)
+    n_shared = shared_nodes(n_nodes, budget)
+    smem = n_shared * HEAD_F * 4
+    _, _, per_sm, threads, lanes = _limits(lib, dev, smem)
+    return {"n_shared": n_shared, "shared_bytes": smem,
+            "blocks": grid_blocks(n_rays, sms, per_sm, 32 // lanes),
+            "blocks_per_sm": per_sm, "sms": sms, "budget": budget,
+            "threads": threads, "lanes": lanes}
+
+
+def walk(heads, tris, o, d, tmin, tmax) -> Hit:
+    """Launch the walk kernel: ``heads`` (N, HEAD_F) and ``tris`` (N,
+    LEAF_K, TRI_F) f32 (``MeshBVH.heads`` / ``.tris``), each starting on a
+    16-byte boundary, o/d (P, 3) f32, tmin/tmax (P,) f32, all contiguous
+    on one CUDA device. Returns ``intersect_mesh``'s ``Hit``; an empty
+    batch launches nothing. The launch shape is ``walk_shape``'s."""
     P = o.shape[0]
-    kernels.require(rows, "rows", torch.float32)
-    if rows.dim() != 2 or rows.shape[1] != 8 + 13 * LEAF_K:
-        raise ValueError(f"rows must be (N, {8 + 13 * LEAF_K}), got "
-                         f"{tuple(rows.shape)}")
-    if rows.data_ptr() % 16:
-        raise ValueError("rows must start on a 16-byte boundary")
+    kernels.require(heads, "heads", torch.float32)
+    if heads.dim() != 2 or heads.shape[1] != HEAD_F:
+        raise ValueError(f"heads must be (N, {HEAD_F}), got "
+                         f"{tuple(heads.shape)}")
+    N = heads.shape[0]
+    kernels.require(tris, "tris", torch.float32, (N, LEAF_K, TRI_F))
+    for name, x in (("heads", heads), ("tris", tris)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     for name, x, shape in (("o", o, (P, 3)), ("d", d, (P, 3)),
                            ("tmin", tmin, (P,)), ("tmax", tmax, (P,))):
         kernels.require(x, name, torch.float32, shape)
@@ -377,23 +459,22 @@ def walk(rows, o, d, tmin, tmax) -> Hit:
     mat = torch.empty(P, dtype=torch.int32, device=dev)
     hit = torch.empty(P, dtype=torch.bool, device=dev)
     if P:
+        shape = walk_shape(N, P, dev)
         err = kernels.library().yacge_bvh_launch(
-            rows.data_ptr(), rows.shape[0], o.data_ptr(), d.data_ptr(),
-            tmin.data_ptr(), tmax.data_ptr(), P, t.data_ptr(), n.data_ptr(),
-            u.data_ptr(), v.data_ptr(), mat.data_ptr(), hit.data_ptr(),
+            heads.data_ptr(), tris.data_ptr(), N, shape["n_shared"],
+            shape["blocks"], o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
+            tmax.data_ptr(), P, t.data_ptr(), n.data_ptr(), u.data_ptr(),
+            v.data_ptr(), mat.data_ptr(), hit.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(err, "BVH walk kernel")
         kernels.LAUNCHES["bvh"] += 1
     return Hit(t=t, n=n, u=u, v=v, mat=mat, hit=hit)
 
 
-def walk_work(bvh: MeshBVH, o, d, tmin, tmax) -> dict:
-    """The work these rays' walks need, counted by running the plain walk
-    uncompacted to its end: node visits (active lanes summed over rounds)
-    and the most of any ray, triangle tests (the count triangles of each
-    leaf whose box is hit), the distinct rows read; with the lockstep
-    rounds and the share of a warp's visit slots that visit
-    (``kernels.warp_efficiency``)."""
+def walk_counts(bvh: MeshBVH, o, d, tmin, tmax):
+    """Run the plain walk uncompacted to its end, counting: (a dict of the
+    (P,) node visits and triangle tests of each ray and the (N,) rows read,
+    the lockstep rounds)."""
     n_nodes = bvh.n_nodes
     st = _start(o, d, tmin, tmax)
     lanes = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
@@ -403,6 +484,16 @@ def walk_work(bvh: MeshBVH, o, d, tmin, tmax) -> dict:
     while bool((st["node"] < n_nodes).any()):
         _walk(bvh.rows, st, n_nodes, work)
         rounds += 1
+    return work, rounds
+
+
+def walk_work(bvh: MeshBVH, o, d, tmin, tmax) -> dict:
+    """The work these rays' walks need (``walk_counts``): node visits
+    (active lanes summed over rounds) and the most of any ray, triangle
+    tests (the count triangles of each leaf whose box is hit), the distinct
+    rows read; with the lockstep rounds and the share of a warp's visit
+    slots that visit (``kernels.warp_efficiency``)."""
+    work, rounds = walk_counts(bvh, o, d, tmin, tmax)
     v = work["visits"]
     return {"visits": int(v.sum()),
             "max_visits": int(v.max()) if v.numel() else 0,
