@@ -67,7 +67,10 @@ Phases (one line each; any failure raises and exits non-zero):
      ``ops/dda.py::intersect_voxels``) against the plain loop on the card,
      bit for bit, at 160x180 rays a case: ``voxel_cave``'s primary rays and
      bounce rays from their hits, the primary rays of ``voxel_test``'s DDA
-     form; ``voxel_cave``'s primary rays against the CPU (t bit-equal);
+     form, and the stress grid (``dda_stress_cases``: rays that graze a
+     surface one cell a round, jump, leave the grid or stop at a per-ray
+     tmax, at voxel sizes 1, 0.5, 2 and 0.3); ``voxel_cave``'s primary
+     rays against the CPU (t bit-equal);
      per case the kernel's times, the work (rounds, cells read, the most
      rounds of a ray, the warp share) and the least time; the plain loop's
      time; then ``voxel_cave`` at 160x90 timed, the DDA kernel launched
@@ -86,7 +89,9 @@ Phases (one line each; any failure raises and exits non-zero):
      share from torch.profiler)
  18. the same island forced onto the DDA (``surface_mesh=False``) at
      160x90: kernel vs plain renderer on one frame, every DDA sweep of a
-     frame against the plain loop bit for bit, ms/frame and DDA sweeps
+     frame against the plain loop bit for bit, the first sweep of each
+     size (28,800 and 57,600 rays) timed as phase 15 times its cases,
+     ms/frame and DDA sweeps
  19. one frame each of ``teapot``, ``cow``, ``all_meshes`` and ``museum``
      on the card against the port's plain renderer on the CPU, the walk
      kernel launched, then each timed at 160x90
@@ -151,7 +156,8 @@ Then a JSON line of per-kernel results (``ms`` is the device time,
 K3, the bunny's for the walk kernel and the forced-DDA island's for the
 DDA kernel, ``launches_by_path`` every timed run, the shell's runs, the
 sharded runs and the suite's rows; K1's ``global_memory`` holds phase
-6d; the walk and DDA kernels' ``cases`` their phase 11 and 15 cases),
+6d; the walk kernel's ``cases`` its phase 11 cases, the DDA kernel's its
+phase 15 cases and phase 18's island sweeps),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -486,6 +492,81 @@ def dda_cases(dev, w: int, h: int) -> dict:
                                1e-3, INF)}
 
 
+# The DDA stress grid, in cells (x, y, z): a floor (y < 4), a wall
+# (z >= 20) and a pillar (x 32-33, y 4-11, z < 20), so that the cells at
+# y = 4, z = 19 and x = 31 lie at distance 1 (jump 0).
+STRESS_DIMS = (40, 16, 24)
+STRESS_H = (1.0, 0.5, 2.0, 0.3)    # 0.3: no exact reciprocal, IEEE division
+
+
+def dda_stress_cases(dev, n: int) -> dict:
+    """The DDA kernel's stress inputs, {f"stress_h{h}": (world, o, d,
+    tmin, tmax)} on ``dev`` for each voxel size of ``STRESS_H``: ``n`` rays
+    from a seeded numpy generator, eight families taken in turn. Rays that
+    graze the floor or the wall one cell a round through distance-1 cells
+    (20 to 40 rounds) and end in it or in the pillar after any number of
+    rounds; rays that rise off the floor (a jump ends a run of jump-0
+    rounds); rays that leave the grid along the floor, or stop at a per-ray
+    tmax; rays parallel to two axes or to one; rays from outside the grid
+    and rays from inside a solid cell."""
+    nx, ny, nz = STRESS_DIMS
+    cells = np.zeros(STRESS_DIMS, np.int32)
+    cells[:, :4, :] = 1
+    cells[:, :, 20:] = 2
+    cells[32:34, 4:12, :20] = 3
+    rs = np.random.RandomState(11)
+    o = np.zeros((n, 3))
+    d = np.zeros((n, 3))
+    tmax = np.full(n, np.float32(INF))
+    u = rs.uniform(size=(n, 4))
+    for i in range(n):
+        a, b, c, e = u[i]
+        fam = i % 8
+        if fam == 0:     # along x over the floor, sinking into it or on
+            o[i] = (1 + 5 * a, 4.05 + 0.9 * b, 2 + 15 * c)
+            d[i] = (1.0, -0.04 * e, 0.04 * (b - 0.5))
+        elif fam == 1:   # along x beside the wall, turning into it
+            o[i] = (1 + 8 * a, 6 + 8 * b, 19.05 + 0.9 * c)
+            d[i] = (1.0, 0.03 * (b - 0.5), 0.05 * e)
+        elif fam == 2:   # rising off the floor: jumps cut the runs
+            o[i] = (1 + 8 * a, 4.05 + 0.9 * b, 2 + 15 * c)
+            d[i] = (1.0, 0.02 + 0.3 * e, 0.1 * (c - 0.5))
+        elif fam == 3:   # out of the grid along the floor (-x or -z)
+            o[i] = (1 + 8 * a, 4.05 + 0.9 * b, 1 + 6 * c)
+            d[i] = ((-1.0, 0.01 * (e - 0.5), 0.05 * (b - 0.5)) if e < 0.5
+                    else (0.05 * (b - 0.5), 0.01 * (e - 0.5), -1.0))
+        elif fam == 4:   # along the floor, stopped by tmax
+            o[i] = (1 + 5 * a, 4.05 + 0.9 * b, 2 + 15 * c)
+            d[i] = (1.0, -0.01 * e, 0.02 * (b - 0.5))
+            tmax[i] = 2.0 + 20.0 * e
+        elif fam == 5:   # parallel to two axes, or to one
+            o[i] = (1 + 30 * a, 4.05 + 0.9 * b, 1 + 18 * c)
+            k = int(4 * e)
+            d[i] = [(1.0, 0.0, 0.0), (0.0, 0.0, 1.0), (0.8, 0.0, 0.6),
+                    (0.6, -0.05, 0.0)][k]
+        elif fam == 6:   # from outside the grid box, into the floor layer
+            o[i] = (-3 - 4 * a, 4.05 + 0.9 * b, 2 + 15 * c)
+            d[i] = (1.0, -0.02 * e, 0.02 * (b - 0.5))
+        else:            # from inside a solid cell (the floor)
+            o[i] = (1 + 30 * a, 0.5 + 2.5 * b, 1 + 18 * c)
+            d[i] = (c - 0.5, e - 0.5, b - 0.5)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cases = {}
+    for h in STRESS_H:
+        origin = np.float32([-2.5, -1.0, 0.5])
+        w = dda.build_voxel_world(cells, origin, h, device=dev)
+        scale = np.float32(h)
+        oo = (origin + o.astype(np.float32) * scale).astype(np.float32)
+        hi = tmax.copy()
+        hi[tmax < INF] *= scale
+        cases[f"stress_h{h}"] = (
+            w, torch.from_numpy(oo).to(dev),
+            torch.from_numpy(d.astype(np.float32)).to(dev),
+            torch.full((n,), 1e-3, device=dev) * float(scale),
+            torch.from_numpy(hi).to(dev))
+    return cases
+
+
 def sweep_kernel_cases(cases, key: str, sweep, launch, grid_args, count,
                        bound) -> dict:
     """Phases 11 and 15 on each case (grid, o, d, tmin, tmax) of
@@ -688,26 +769,44 @@ def same_surface_tables(a, b) -> None:
                            tb.tri_rows[rows(ib)]), key
 
 
+def island_config():
+    """The default island's ``WorldConfig`` (phases 17 and 18)."""
+    from yetanotherconsolegameengine_tpu_torch.world.settings import (
+        WorldConfig)
+    return WorldConfig(chunks_x=8, chunks_y=4, chunks_z=8, view_distance=3)
+
+
+def orbit_poses(vs, n):
+    """The first ``n`` of the island orbit's ``ORBIT_POSES`` camera poses
+    around the streamed scene ``vs``'s start."""
+    eye = vs.pos.copy()
+    eye[1] += 6.0
+    return [(eye, math.pi * 2 * i / ORBIT_POSES, -0.35) for i in range(n)]
+
+
+def island_dda_cases(calls) -> dict:
+    """{f"island_dda_{P}": (world, o, d, tmin, tmax)}: the first recorded
+    DDA sweep (``record_calls`` of ``dda.intersect_voxels``) of each ray
+    count of a forced-DDA island frame."""
+    cases = {}
+    for args, _, _ in calls:
+        cases.setdefault(f"island_dda_{args[1].shape[0]}", args[:5])
+    return cases
+
+
 def island_phases(dev, card):
-    """Phases 17 and 18 on the default island (``WorldConfig(chunks_x=8,
-    chunks_y=4, chunks_z=8, view_distance=3)``), generated and saved once
-    into a temporary directory. Returns (the orbit runs by size, the
-    forced-DDA run)."""
+    """Phases 17 and 18 on the default island (``island_config``),
+    generated and saved once into a temporary directory. Returns (the
+    orbit runs by size, the forced-DDA run with the DDA kernel's timed
+    island sweeps under "dda_cases")."""
     from yetanotherconsolegameengine_tpu_torch.world import worldgen
     from yetanotherconsolegameengine_tpu_torch.world.manager import (
         WorldManager)
     from yetanotherconsolegameengine_tpu_torch.world.persistence import (
         WorldFile, save_world)
-    from yetanotherconsolegameengine_tpu_torch.world.settings import (
-        WorldConfig)
     from yetanotherconsolegameengine_tpu_torch.world.volume_scene import (
         build_minecraft_like)
-    cfg = WorldConfig(chunks_x=8, chunks_y=4, chunks_z=8, view_distance=3)
-
-    def orbit_poses(vs, n):
-        eye = vs.pos.copy()
-        eye[1] += 6.0
-        return [(eye, math.pi * 2 * i / ORBIT_POSES, -0.35) for i in range(n)]
+    cfg = island_config()
 
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "island.vg")
@@ -775,8 +874,14 @@ def island_phases(dev, card):
             calls = record_calls(r.render, dda, "intersect_voxels")
             assert calls, "no DDA sweep in a forced-DDA island frame"
             bits = recorded_bit_contract(calls, dda.intersect_voxels)
+            # One sweep of each size timed as phase 15 times its cases.
+            sweeps = sweep_kernel_cases(
+                island_dda_cases(calls), "dda", dda.intersect_voxels,
+                dda.march, lambda w: (w.cells, w.origin, w.voxel_size),
+                dda.march_work, dda_bound)
             run = timed_frames(r, DDA_ISLAND_FRAMES, ("post", "dda"),
                                poses=poses)
+            run["dda_cases"] = sweeps
             idle = idle_share(r, poses[:2])
         finally:
             vs.manager.shutdown()
@@ -788,7 +893,10 @@ def island_phases(dev, card):
           f"loop bit for bit {json.dumps(bits)}; {run['ms']:.4f} ms/frame by "
           f"CUDA events, {run['host_ms']:.4f} by host clock, "
           f"{run['mray_s']:.3f} Mray/s; launches {run['launches']}; DDA per "
-          f"frame {sw / DDA_ISLAND_FRAMES:.1f} sweeps, one launch each; "
+          f"frame {sw / DDA_ISLAND_FRAMES:.1f} sweeps, one launch each; the "
+          f"first sweep of each size (ms: kernel device time | the sweep by "
+          f"CUDA events; bound, share, work as in phase 15): "
+          f"{json.dumps(run['dda_cases'])}; "
           f"device busy {idle['busy_ms']:.4f} of {idle['wall_ms']:.4f} "
           f"ms/frame, {idle['ops']:.1f} device operations/frame, idle share "
           f"{idle['idle_share']:.4f}", flush=True)
@@ -1982,7 +2090,8 @@ def main() -> int:
 
     # ---- 15. the voxel DDA kernel vs the plain loop on the card ---------
     cave = SCENE_BUILDERS["voxel_cave"]()
-    dda_in = dda_cases(dev, HI_W, HI_H)
+    dda_in = {**dda_cases(dev, HI_W, HI_H),
+              **dda_stress_cases(dev, HI_W * HI_H)}
     dda_res = sweep_kernel_cases(
         dda_in, "dda", dda.intersect_voxels, dda.march,
         lambda w: (w.cells, w.origin, w.voxel_size), dda.march_work,
@@ -2247,7 +2356,8 @@ def main() -> int:
                               **sharded("dda")},
          "cases": {k: {f: v[f] for f in ("ms", "event_ms", "bound_ms",
                                          "share", "rays", "hits")}
-                   for k, v in dda_res.items()}},
+                   for k, v in {**dda_res,
+                                **dda_run["dda_cases"]}.items()}},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (bit_contract, dda_cases, hit_contract,
-                        lbvh_contract, post_contract, record_sweeps,
-                        sweep_contract, trace_contract, walk_cases)
+from chip_smoke import (STRESS_H, bit_contract, dda_cases, dda_stress_cases,
+                        hit_contract, lbvh_contract, post_contract,
+                        record_sweeps, sweep_contract, trace_contract,
+                        walk_cases)
 from yetanotherconsolegameengine_tpu_torch.config import DEFAULT_CONFIG
 from yetanotherconsolegameengine_tpu_torch.core.camera import (
     make_jittered_rays, ray_params)
@@ -703,10 +704,12 @@ _CASES = {}
 
 
 def _sweep_cases(dev, which):
-    """Phase 11's and 15's inputs at 96x64 rays (one build a process)."""
+    """Phase 11's and 15's inputs at 96x64 rays, with the DDA's stress
+    grid at 4,608 rays (one build a process)."""
     if which not in _CASES:
-        make = walk_cases if which == "walk" else dda_cases
-        _CASES[which] = make(dev, 96, 64)
+        _CASES[which] = (walk_cases(dev, 96, 64) if which == "walk" else
+                         {**dda_cases(dev, 96, 64),
+                          **dda_stress_cases(dev, 4608)})
     return _CASES[which]
 
 
@@ -737,8 +740,14 @@ def test_walk_kernel_equals_the_plain_walk_bit_for_bit(dev, name, P):
 
 @pytest.mark.parametrize("P", [0, 1, 31, 4097])
 @pytest.mark.parametrize("name", ["voxel_cave_primary", "voxel_cave_bounce",
-                                  "voxel_test_dda"])
+                                  "voxel_test_dda",
+                                  *(f"stress_h{h}" for h in STRESS_H)])
 def test_dda_kernel_equals_the_plain_loop_bit_for_bit(dev, name, P):
+    """One launch a sweep (none for an empty batch), t, n, u, v, mat and
+    hit bit-equal to the plain loop on the card: on phase 15's rays and on
+    the stress grid (grazing runs of jump-0 rounds, jumps, exits, per-ray
+    tmax), at voxel sizes with an exact reciprocal (1, 0.5, 2) and without
+    (0.3)."""
     args = _first(_sweep_cases(dev, "dda")[name], P)
     before = kernels.LAUNCHES["dda"]
     got = dda.intersect_voxels(*args)

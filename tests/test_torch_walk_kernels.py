@@ -27,6 +27,7 @@ from yetanotherconsolegameengine_tpu.ops import dda as jdda
 from yetanotherconsolegameengine_tpu.ops import lbvh as jlbvh
 from yetanotherconsolegameengine_tpu.ops import mesh_bvh as jbvh
 from yetanotherconsolegameengine_tpu.scene import mesh_loader as jml
+from chip_smoke import STRESS_H, dda_stress_cases
 from yetanotherconsolegameengine_tpu_torch.core.camera import (
     make_jittered_rays, ray_params)
 from yetanotherconsolegameengine_tpu_torch.ops import (dda, intersect,
@@ -220,12 +221,57 @@ def min_key(a, b):
     return b if b[0] < a[0] or (b[0] == a[0] and b[1] < a[1]) else a
 
 
-def march_thread(cells, origin, h, o, d, t_lo, t_hi):
-    """csrc/dda_kernel.cu's thread: (t, n, mat, hit, rounds)."""
+def exact_reciprocal(h):
+    """csrc/dda_kernel.cu's test: h = +-2^e with 1/h a normal float."""
+    bits = int(np.array(h, np.float32).view(np.uint32))
+    expo = (bits >> 23) & 0xFF
+    return bits & 0x7FFFFF == 0 and 1 <= expo <= 253
+
+
+def _to_int(x):
+    """static_cast<int>(floorf(x)) on the card: NaN -> 0, saturating."""
+    if x != x:
+        return 0
+    return int(min(max(np.floor(x), -2.0 ** 31), 2.0 ** 31 - 1))
+
+
+def _probe(r, t):
+    """What a round of csrc/dda_kernel.cu's march computes from its start
+    t alone: the cell's index, whether the round marches, the next
+    boundary and its axis, and the next t for a cell of jump 0."""
+    te = t + r["eps"]
+    cell, in_grid, lin = [], True, 0
+    for a in range(3):
+        p = r["o"][a] + te * r["d"][a]
+        x = ((p - r["g"][a]) * r["inv_h"] if r["exact"]
+             else (p - r["g"][a]) / r["h"])
+        fl = np.floor(x)
+        c = _to_int(fl)
+        cc = min(max(c, 0), r["dims"][a] - 1)
+        in_grid, lin = in_grid and cc == c, lin * r["dims"][a] + cc
+        cell.append(fl)
+    for a in range(3):
+        # floor(x) + up for float(cell + up): equal inside the grid.
+        ta = (((cell[a] + F(r["d"][a] > 0)) * r["h"] + r["g"][a])
+              - r["o"][a]) * r["inv"][a]
+        ta = KINF if abs(r["d"][a]) < F(1e-12) else ta
+        if a == 0 or (ta != ta and t_new == t_new) or ta < t_new:
+            t_new, new_axis = ta, a
+    return dict(te=te, lin=lin, in_grid=in_grid,
+                go=in_grid and t < r["tcap"], t_new=t_new, axis=new_axis,
+                t_next=_max(_max(t_new, t + r["zero_h"]), te))
+
+
+def march_thread(cells, origin, h, o, d, t_lo, t_hi, log=None):
+    """csrc/dda_kernel.cu's thread: (t, n, mat, hit, rounds). ``log``,
+    when given, gets how the march ended ("grid": it left the grid,
+    "tcap": it reached tmin/tmax's cap, or "hit"), its longest run of
+    jump-0 rounds in a row and its rounds with a jump > 0."""
     dims = cells.shape
     flat_cells = cells.reshape(-1)
     eps = F(1e-4) * h
     inv = [_inv(x) for x in d]
+    exact = exact_reciprocal(h)
     for a in range(3):
         gmax = origin[a] + F(dims[a]) * h
         ta, tb = (origin[a] - o[a]) * inv[a], (gmax - o[a]) * inv[a]
@@ -239,30 +285,29 @@ def march_thread(cells, origin, h, o, d, t_lo, t_hi):
     t_start = _max(t_enter, t_lo)
     inside = t_enter < t_lo
     alive = t_enter <= t_exit and t_start < t_hi and t_exit >= t_lo
-    tcap = _min(t_exit, t_hi)
+    r = dict(o=o, d=d, inv=inv, g=origin, dims=dims, h=h, eps=eps,
+             zero_h=F(0) * h, exact=exact,
+             inv_h=F(1) / h if exact else None, tcap=_min(t_exit, t_hi))
     t, t_hit, axis_hit, mat, hit, rounds = t_start, KINF, 0, 0, False, 0
+    end, run, longest, jumps = "grid", 0, 0, 0
     while alive:
-        rounds += 1
-        te = t + eps
-        cell, in_grid, lin = [], True, 0
-        for a in range(3):
-            c = int(np.floor((o[a] + te * d[a] - origin[a]) / h))
-            cc = min(max(c, 0), dims[a] - 1)
-            in_grid, lin = in_grid and cc == c, lin * dims[a] + cc
-            cell.append(c)
-        if not (in_grid and t < tcap):
+        rounds += 1          # the rounds a lane enters marching
+        q = _probe(r, t)
+        if not q["go"]:
+            end = "grid" if not q["in_grid"] else "tcap"
             break
-        enc = int(flat_cells[lin])
+        enc = int(flat_cells[q["lin"]])
         if enc > 0:
-            hit, t_hit, axis_hit, mat = True, t, axis, enc
+            hit, t_hit, axis_hit, mat, end = True, t, axis, enc, "hit"
             break
-        for a in range(3):
-            ta = ((F(cell[a] + (d[a] > 0)) * h + origin[a]) - o[a]) * inv[a]
-            ta = KINF if abs(d[a]) < F(1e-12) else ta
-            if a == 0 or (ta != ta and t_new == t_new) or ta < t_new:
-                t_new, new_axis = ta, a
-        t_new = _max(t_new, t + F(max(-2 - enc, 0)) * h)
-        t, axis = _max(t_new, te), new_axis
+        jump = max(-2 - enc, 0)
+        run = 0 if jump else run + 1
+        longest, jumps = max(longest, run), jumps + (jump > 0)
+        t = (q["t_next"] if jump == 0
+             else _max(_max(q["t_new"], t + F(jump) * h), q["te"]))
+        axis = q["axis"]
+    if log is not None:
+        log.append((end, longest, jumps))
     s = F(1) if d[axis_hit] < 0 else F(-1)
     face = inside and t_hit <= t_start + eps
     n = [-d[a] if face else F(a == axis_hit) * s for a in range(3)]
@@ -295,13 +340,13 @@ def group_model(bvh, o, d, tmin, tmax, n_shared=None, lanes=4):
                            lo[i], hi[i], lanes) for i in range(len(o))]
 
 
-def march_model(w, o, d, tmin, tmax):
+def march_model(w, o, d, tmin, tmax, log=None):
     cells, origin = w.cells.numpy(), w.origin.numpy()
     h = F(w.voxel_size.item())
     lo, hi = _lanes(tmin, len(o)), _lanes(tmax, len(o))
     with np.errstate(over="ignore", invalid="ignore"):
         return [march_thread(cells, origin, h, o[i].numpy(), d[i].numpy(),
-                             lo[i], hi[i]) for i in range(len(o))]
+                             lo[i], hi[i], log) for i in range(len(o))]
 
 
 def _same_bits(model, hit, fields):
@@ -531,10 +576,14 @@ def test_dda_kernel_grid_constants_equal_the_plain_loops():
     assert g["h"] == float(h)
     assert g["eps"] == float(F(1e-4) * h)
     src = (CSRC / "dda_kernel.cu").read_text()
-    for expr in ("const float eps = 1e-4f * h;",
-                 "lin = lin * dims[a] + cc;",
-                 "const int dims[3] = {gx, gy, gz};"):
+    # lin = (x * ny + y) * nz + z in 32 bits: march refuses larger grids.
+    for expr in ("r.eps = 1e-4f * r.h;", "r.zero_h = 0.0f * r.h;",
+                 "int dims[3], yz;",
+                 "r.yz = gy * gz;",
+                 "const int lin = cc[0] * r.yz + (cc[1] * r.dims[2] + cc[2]);",
+                 "r.dims[0] = gx;", "r.dims[1] = gy;", "r.dims[2] = gz;"):
         assert expr in src, expr
+    assert "long long" not in src
     assert torch.equal(g["cells"], w.cells.reshape(-1).to(torch.int32))
     assert w.cells.dtype == torch.int16
 
@@ -713,3 +762,118 @@ def test_warp_efficiency_counts_a_warp_as_its_longest_ray():
     assert kernels.warp_efficiency(lane) == (32 + 64) / (32 * 1 + 32 * 64)
     assert kernels.warp_efficiency(torch.tensor([3] * 40)) == 120 / 192
     assert kernels.warp_efficiency(torch.zeros(0, dtype=torch.int64)) == 1.0
+
+
+# ---- the DDA kernel's thread on the stress grid ----------------------------
+
+STRESS_RAYS = 256
+
+
+def _stress(h):
+    return dda_stress_cases("cpu", STRESS_RAYS)[f"stress_h{h}"]
+
+
+@pytest.mark.parametrize("h", STRESS_H)
+def test_march_thread_model_equals_the_plain_loop_on_the_stress_grid(h):
+    """The thread gives the plain loop's outputs bit for bit on the stress
+    grid (grazing rays through distance-1 cells, jumps, exits, per-ray
+    tmax, rays parallel to axes, from outside the grid and from inside a
+    solid cell), at a voxel size with an exact reciprocal (1, 0.5, 2) and
+    without (0.3), and enters as many rounds a ray as the plain loop."""
+    args = _stress(h)
+    model = march_model(*args)
+    _same_bits(model, dda.intersect_voxels(*args, compact=False),
+               DDA_FIELDS)
+    work, _ = dda.march_counts(*args)
+    assert [m[4] for m in model] == work["rounds"].tolist()
+
+
+@pytest.mark.parametrize("h", STRESS_H)
+def test_stress_grid_ends_marches_every_way(h):
+    """The stress grid's rays end their marches in every way the kernel's
+    loop has (a hit, leaving the grid, reaching a per-ray tmax), graze for
+    20 rounds or more of jump 0 in a row, and jump; rays parallel to two
+    axes and to one, and rays that start inside a solid cell (the hit at
+    the start, normal -d), are among them."""
+    w, o, d, lo, hi = _stress(h)
+    log = []
+    model = march_model(w, o, d, lo, hi, log=log)
+    assert {end for end, _, _ in log} == {"hit", "grid", "tcap"}
+    assert max(run for _, run, _ in log) >= 20
+    assert sum(jumps > 0 for _, _, jumps in log) >= STRESS_RAYS // 8
+    assert ((d == 0).sum(1) == 2).any() and ((d == 0).sum(1) == 1).any()
+    hit_at_start = [i for i, m in enumerate(model)
+                    if m[3] and np.array_equal(m[1], -d[i].numpy())]
+    assert len(hit_at_start) >= 8
+
+
+def test_one_select_minimum_and_maximum_keep_torch_order():
+    """csrc/dda_kernel.cu's min_nan, max_nan and first-of-equal-minima
+    test, one select each, pick the operand the three-way forms (torch's
+    minimum and maximum, the plain loop's torch.min over the axes) pick:
+    bit for bit on +-0, +-inf, NaNs of two payloads, subnormals and random
+    pairs (equal ones and sign flips among them)."""
+    def min_sel(a, b):
+        return b if a == a and not b >= a else a
+
+    def max_sel(a, b):
+        return b if a == a and not b <= a else a
+
+    def first_three(ta, t_new):
+        return (ta != ta and t_new == t_new) or ta < t_new
+
+    def first_sel(ta, t_new):
+        return t_new == t_new and not ta >= t_new
+
+    special = np.array([0x0, 0x80000000, 0x3F800000, 0xBF800000, 0x7F800000,
+                        0xFF800000, 0x7FC00001, 0xFFC00002, 0x1, 0x80000001,
+                        0x7F7FFFFF], np.uint32).view(F)
+    rs = np.random.RandomState(9)
+    x = rs.randint(0, 2 ** 32, 20000, dtype=np.uint64).astype(np.uint32)
+    y = rs.randint(0, 2 ** 32, 20000, dtype=np.uint64).astype(np.uint32)
+    y[::3] = x[::3]
+    y[1::5] = x[1::5] ^ np.uint32(0x80000000)
+    pairs = [(a, b) for a in special for b in special]
+    pairs += list(zip(x.view(F), y.view(F)))
+    for a, b in pairs:
+        assert _bits(min_sel(a, b)) == _bits(_min(a, b)), (a, b)
+        assert _bits(max_sel(a, b)) == _bits(_max(a, b)), (a, b)
+        assert first_sel(a, b) == first_three(a, b), (a, b)
+
+
+def test_exact_reciprocal_takes_powers_of_two_only():
+    """The kernel multiplies by 1/h instead of dividing by h only where
+    that is exact: h = +-2^e with 1/h a normal float. There x / h equals
+    x * (1/h) bit for bit, subnormal and overflowing quotients included."""
+    yes = [1.0, 0.5, 2.0, 0.25, 1024.0, -4.0, 2.0 ** -126, 2.0 ** 126]
+    no = [0.3, 3.0, 0.0, -0.0, 2.0 ** 127, 2.0 ** -127, 1.5, float("inf"),
+          float("nan")]
+    assert all(exact_reciprocal(F(h)) for h in yes)
+    assert not any(exact_reciprocal(F(h)) for h in no)
+    rs = np.random.RandomState(7)
+    x = rs.randint(-2 ** 31, 2 ** 31, 20000).astype(np.int32).view(F)
+    x = x[np.isfinite(x)]
+    with np.errstate(over="ignore", under="ignore"):
+        for h in map(F, yes):
+            assert np.array_equal(_bits(x / h), _bits(x * (F(1) / h))), h
+
+
+# ---- the DDA wrapper's host side -------------------------------------------
+
+def test_march_refuses_grids_its_cell_index_cannot_hold():
+    """The kernel's linear cell index is 32-bit: ``march`` refuses a grid
+    of 2^31 cells or more (and an empty one) before it looks at devices,
+    and lets a grid of 2^31 - 1 cells through to the device check. Meta
+    tensors: nothing is allocated."""
+    w, o, d, _, _ = _dda_case()
+    lo, hi = (torch.full((o.shape[0],), v) for v in (1e-3, INF))
+    meta = lambda *shape: torch.empty(shape, dtype=torch.int16,
+                                      device="meta")
+    for cells in (meta(2048, 1024, 1024), meta(1 << 16, 1 << 16, 1),
+                  meta(0, 8, 8)):
+        with pytest.raises(ValueError, match="2\\^31"):
+            dda.march(cells, w.origin, w.voxel_size, o, d, lo, hi)
+    assert dda.MAX_CELLS == 2 ** 31 - 1
+    with pytest.raises(ValueError, match="CUDA"):
+        dda.march(meta(1, 1, dda.MAX_CELLS), w.origin, w.voxel_size, o, d,
+                  lo, hi)

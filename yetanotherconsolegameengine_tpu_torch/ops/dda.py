@@ -55,6 +55,9 @@ CHECK_EVERY = 8
 # still marches.
 COMPACT_MIN = 1024
 
+# The kernel's linear cell index is 32-bit.
+MAX_CELLS = 2 ** 31 - 1
+
 # Work counters of the DDA (sweeps; the plain loop's rounds, host waits and
 # compactions), for the frame profiler; ``STATS.clear()`` resets them.
 STATS = collections.Counter()
@@ -262,15 +265,18 @@ def _write_back(full: dict, cur: dict, lanes) -> None:
 
 def march(cells, origin, voxel_size, o, d, tmin, tmax) -> Hit:
     """Launch the DDA kernel: ``cells`` (nx, ny, nz) int16
-    distance-encoded, ``origin`` (3,) and ``voxel_size`` () f32, o/d
-    (P, 3) f32, tmin/tmax (P,) f32, all contiguous on one CUDA device.
-    Returns ``intersect_voxels``'s ``Hit``; an empty batch launches
-    nothing."""
+    distance-encoded, of 1 to ``MAX_CELLS`` cells, ``origin`` (3,) and
+    ``voxel_size`` () f32, o/d (P, 3) f32, tmin/tmax (P,) f32, all
+    contiguous on one CUDA device. Returns ``intersect_voxels``'s
+    ``Hit``; an empty batch launches nothing."""
     P = o.shape[0]
-    kernels.require(cells, "cells", torch.int16)
     if cells.dim() != 3:
         raise ValueError(f"cells must be (nx, ny, nz), got "
                          f"{tuple(cells.shape)}")
+    if not 0 < cells.numel() <= MAX_CELLS:
+        raise ValueError(f"cells must hold 1 to 2^31 - 1 cells (the kernel's "
+                         f"cell index is 32-bit), got {cells.numel()}")
+    kernels.require(cells, "cells", torch.int16)
     kernels.require(origin, "origin", torch.float32, (3,))
     kernels.require(voxel_size, "voxel_size", torch.float32, ())
     for name, x, shape in (("o", o, (P, 3)), ("d", d, (P, 3)),
@@ -295,13 +301,11 @@ def march(cells, origin, voxel_size, o, d, tmin, tmax) -> Hit:
     return Hit(t=t, n=n, u=z, v=z, mat=mat, hit=hit)
 
 
-def march_work(w: VoxelWorld, o, d, tmin, tmax) -> dict:
-    """The work these rays' marches need, counted by running the plain
-    loop uncompacted to its end: rounds (the lanes that enter a round
-    marching, summed over rounds; each is one round of the kernel's loop),
-    the most of any ray, and the distinct cells read; with the lockstep
-    rounds and the share of a warp's round slots that march
-    (``kernels.warp_efficiency``)."""
+def march_counts(w: VoxelWorld, o, d, tmin, tmax):
+    """Run the plain loop uncompacted to its end, counting: (a dict of the
+    (P,) rounds of each ray (the rounds it enters marching, each one round
+    of the kernel's loop) and the cells read (a mask over the grid), the
+    lockstep rounds)."""
     st, _, _, g = _start(w, o, d, tmin, tmax)
     work = dict(rounds=torch.zeros(o.shape[0], dtype=torch.int64,
                                    device=o.device),
@@ -311,6 +315,16 @@ def march_work(w: VoxelWorld, o, d, tmin, tmax) -> dict:
     while bool(st["alive"].any()):
         _step(st, g, work)
         lockstep += 1
+    return work, lockstep
+
+
+def march_work(w: VoxelWorld, o, d, tmin, tmax) -> dict:
+    """The work these rays' marches need (``march_counts``): rounds (the
+    lanes that enter a round marching, summed over rounds), the most of any
+    ray, and the distinct cells read; with the lockstep rounds and the
+    share of a warp's round slots that march
+    (``kernels.warp_efficiency``)."""
+    work, lockstep = march_counts(w, o, d, tmin, tmax)
     lane = work["rounds"]
     return {"rounds": int(lane.sum()),
             "max_rounds": int(lane.max()) if lane.numel() else 0,
