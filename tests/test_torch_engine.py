@@ -28,7 +28,7 @@ from yetanotherconsolegameengine_tpu_torch.engine.raytrace_entity import (
 from yetanotherconsolegameengine_tpu_torch.render.renderer import (
     RaytraceRenderer)
 from yetanotherconsolegameengine_tpu_torch.scene.builders import SCENE_BUILDERS
-from yetanotherconsolegameengine_tpu_torch.utils import png, profiling
+from yetanotherconsolegameengine_tpu_torch.utils import png
 
 # The suite runs several xdist workers beside JAX's own thread pools;
 # torch's per-process intra-op pool would oversubscribe the cores.
@@ -336,13 +336,3 @@ def test_host_copy_on_the_cpu():
     x = torch.arange(6, dtype=torch.int32).reshape(2, 3)
     (got,) = HostCopy([x]).numpy()
     np.testing.assert_array_equal(got, x.numpy())
-
-
-def test_frame_stats():
-    st = profiling.FrameStats(window=4)
-    for _ in range(3):
-        st.begin_frame()
-        with st.stage("trace"):
-            pass
-        st.end_frame()
-    assert st.fps > 0 and "trace" in st.summary()

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..devices import resolve_device
+from ..utils import profiling
 from . import sampler
 
 
@@ -66,7 +67,10 @@ def ray_params(cam: CameraPose, width: int, height: int, frame_idx):
     half_h = torch.tan(0.5 * fov_rad)
     half_w = half_h * aspect
     fwd = _normalize(forward_from_yaw_pitch(cam.yaw, cam.pitch))
-    world_up = torch.tensor([0.0, 1.0, 0.0], device=fwd.device).expand_as(fwd)
+    # A blocking copy from the host on a card.
+    world_up = profiling.sync("camera.world_up", torch.tensor,
+                              [0.0, 1.0, 0.0], device=fwd.device)
+    world_up = world_up.expand_as(fwd)
     right = _normalize(torch.linalg.cross(fwd, world_up))
     up = _normalize(torch.linalg.cross(right, fwd))
     f1 = fidx + 1.0

@@ -31,6 +31,7 @@ import torch
 from ..devices import resolve_device
 from ..render.renderer import RaytraceRenderer
 from ..scene.builders import SCENE_BUILDERS
+from ..utils import profiling
 from .chexel import Framebuffer
 from .entity import BaseComponent
 from .fly_camera import FlyCamera
@@ -49,13 +50,28 @@ def default_scene_order() -> List[str]:
     return [n for n in order if n in SCENE_BUILDERS or n == "minecraft_like"]
 
 
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on its way to the host, ``to("cpu", non_blocking=True)``. A
+    CUDA tensor whose dimensions do not run in row-major order (the RGB
+    planes' channel-last views) gets a host tensor in its own order, and
+    PyTorch stages that copy through pageable memory: it waits for the
+    card, counted as the tracer's ``entity.host_copy``."""
+    if not t.is_cuda:
+        return t.to("cpu", non_blocking=True)
+    t0 = time.perf_counter_ns()
+    host = t.to("cpu", non_blocking=True)
+    if not host.is_contiguous():
+        profiling.waited("entity.host_copy", time.perf_counter_ns() - t0)
+    return host
+
+
 class HostCopy:
     """Tensors on their way to the host: the copies are queued behind the
-    launches that produce them (into pinned memory, without waiting), and
-    ``numpy()`` waits for them alone."""
+    launches that produce them (into pinned memory, without waiting, but
+    see ``_to_host``), and ``numpy()`` waits for them alone."""
 
     def __init__(self, tensors):
-        self._host = [t.to("cpu", non_blocking=True) for t in tensors]
+        self._host = [_to_host(t) for t in tensors]
         self._done = None
         if any(t.is_cuda for t in tensors):
             self._done = torch.cuda.Event()
@@ -63,7 +79,7 @@ class HostCopy:
 
     def numpy(self) -> List[np.ndarray]:
         if self._done is not None:
-            self._done.synchronize()
+            profiling.sync("entity.copy_wait", self._done.synchronize)
         return [t.numpy() for t in self._host]
 
 
@@ -237,6 +253,10 @@ class RaytraceComponent(BaseComponent):
     # -- frame (RaytraceEntity.Update, :221-232) ----------------------------
 
     def update(self, dt: float):
+        with profiling.span("component.update"):
+            self._update(dt)
+
+    def _update(self, dt: float):
         inp = getattr(self.entity, "input", None)
         if self._video is not None:
             out = self._video.render()
@@ -273,7 +293,8 @@ class RaytraceComponent(BaseComponent):
         rays = None
         if blitted is not None:
             top, bot, fg, bg, rays = blitted.numpy()
-            self.fb.blit_half_blocks(top, bot, fg, bg)
+            with profiling.span("component.blit"):
+                self.fb.blit_half_blocks(top, bot, fg, bg)
         self._pending = HostCopy((out.top_rgb, out.bot_rgb, out.fg_ansi,
                                   out.bg_ansi, out.rays_traced))
         frame_ms = (time.perf_counter() - t0) * 1000.0
@@ -282,12 +303,14 @@ class RaytraceComponent(BaseComponent):
             self._frame_times.pop(0)
 
         if self.show_hud:
-            # Ray stats of the frame blitted this tick; only the first tick
-            # after a switch, with nothing blitted, reads the new frame's.
-            self.info = self._info_string(
-                int(rays) if rays is not None else int(out.rays_traced),
-                frame_ms)
-            self.fb.write_text(0, 0, self.info[: self.fb.width])
+            # Ray stats of the frame blitted this tick; only the first
+            # tick after a switch, with nothing blitted, reads the new
+            # frame's.
+            n_rays = (int(rays) if rays is not None else profiling.sync(
+                "entity.first_rays", int, out.rays_traced))
+            with profiling.span("component.blit"):
+                self.info = self._info_string(n_rays, frame_ms)
+                self.fb.write_text(0, 0, self.info[: self.fb.width])
 
     @staticmethod
     def _volume_input(vs, inp, dt: float):
@@ -380,16 +403,17 @@ class RaytraceComponent(BaseComponent):
             self._dispatch_batch(dt, inp)
         fg, bg, top, bot = (g[self._batch_pos] for g in self._batch_cur)
         self._batch_pos += 1
-        # RGB planes ship as display u8 (render_many(rgb=True)): decode.
-        self.fb.blit_half_blocks(top.astype(np.float32) / 255.0,
-                                 bot.astype(np.float32) / 255.0, fg, bg)
-        frame_ms = (time.perf_counter() - t0) * 1000.0
-        self._frame_times.append(frame_ms)
-        if len(self._frame_times) > 30:
-            self._frame_times.pop(0)
-        if self.show_hud:
-            self.info = self._info_string(self._batch_rays, frame_ms)
-            self.fb.write_text(0, 0, self.info[: self.fb.width])
+        with profiling.span("component.blit"):
+            # RGB planes ship as display u8 (render_many(rgb=True)): decode.
+            self.fb.blit_half_blocks(top.astype(np.float32) / 255.0,
+                                     bot.astype(np.float32) / 255.0, fg, bg)
+            frame_ms = (time.perf_counter() - t0) * 1000.0
+            self._frame_times.append(frame_ms)
+            if len(self._frame_times) > 30:
+                self._frame_times.pop(0)
+            if self.show_hud:
+                self.info = self._info_string(self._batch_rays, frame_ms)
+                self.fb.write_text(0, 0, self.info[: self.fb.width])
 
     def _info_string(self, rays: int, frame_ms: float) -> str:
         """HUD parity (GetInfoString, RaytraceEntity.cs:216-219)."""

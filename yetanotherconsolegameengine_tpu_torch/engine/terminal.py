@@ -3,16 +3,19 @@
 Copied from ``yetanotherconsolegameengine_tpu/engine/terminal.py``.
 Counterpart of the C# Terminal (Renderer/Terminal.cs:23-365): owns the presentation backend (cycled with
 '[' / ']'), the input poller, the entity list and the entity framebuffer;
-each tick: dt -> input update -> key/mouse dispatch -> debounced resize
-(125 ms) -> entity update (renders) -> compose + backend render -> HUD.
-Esc / Ctrl-C stops.
+each tick (``Terminal.tick``): dt -> input update -> key/mouse dispatch
+-> debounced resize (125 ms) -> entity update (renders) -> compose +
+backend render -> HUD. Esc / Ctrl-C stops. Spans (``utils/profiling.py``):
+``tick``, ``tick.input``, ``tick.hud``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import List, Optional
 
+from ..utils import profiling
 from .chexel import Framebuffer
 from .entity import BaseEntity
 from .input import TerminalInput
@@ -49,6 +52,7 @@ class Terminal:
         self.fixed_size = False  # True disables resize-follow (--size)
         self.on_resize = None  # callback(fb)
         self.debug_string = ""
+        self._fps = 0.0  # the HUD's smoothed rate
 
     def add_entity(self, e: BaseEntity) -> BaseEntity:
         e.input = self.input  # type: ignore[attr-defined]
@@ -98,51 +102,12 @@ class Terminal:
             self.input.start()
         last = time.perf_counter()
         frames = 0
-        fps = 0.0
         try:
             while self.running:
                 now = time.perf_counter()
                 dt = min(0.25, now - last)
                 last = now
-
-                if self.input is not None:
-                    self.input.update()
-                    # Windowed backends queue their own key events
-                    # (window_renderer.WindowTerminalRenderer._pump).
-                    win_keys = getattr(self.renderer, "try_get_key", None)
-                    while (key := self.input.try_get_key()
-                           or (win_keys() if win_keys else None)) is not None:
-                        if key in ("esc", "ctrl_c"):
-                            self.running = False
-                        elif key == "[":
-                            self.cycle_backend(-1)
-                        elif key == "]":
-                            self.cycle_backend(+1)
-                        else:
-                            for e in self.entities:
-                                if e.handle_key(key):
-                                    break
-                    while (ev := self.input.try_get_mouse()) is not None:
-                        for e in self.entities:
-                            if e.handle_mouse(ev):
-                                break
-
-                self._check_resize(now)
-                for e in self.entities:
-                    e.update(dt)
-                for e in self.entities:
-                    e.draw(self.fb)
-                self.renderer.render()
-
-                # FPS/HUD line on the reserved bottom row (Terminal.cs:163).
-                ft = time.perf_counter() - now
-                fps = 0.9 * fps + 0.1 * (1.0 / max(ft, 1e-6))
-                import os
-                hud = (f"\x1b[{self.fb.height + 1};1H\x1b[0m\x1b[K"
-                       f" {fps:5.1f} fps | {ft * 1000.0:6.1f} ms | "
-                       f"{self.renderer.name} | {self.debug_string}")
-                os.write(self.out_fd, hud.encode())
-
+                self.tick(now, dt)
                 frames += 1
                 if max_frames is not None and frames >= max_frames:
                     self.running = False
@@ -156,6 +121,52 @@ class Terminal:
                 leave_alt_screen(self.out_fd)
             for e in self.entities:
                 e.close()
+
+    def tick(self, now: float, dt: float):
+        """One pass of the loop that began at ``now`` (``perf_counter``),
+        ``dt`` seconds after the last: keys and mouse, resize, the
+        entities' update and draw, the backend's frame, the HUD line."""
+        with profiling.span("tick"):
+            if self.input is not None:
+                with profiling.span("tick.input"):
+                    self._dispatch_input()
+            self._check_resize(now)
+            for e in self.entities:
+                e.update(dt)
+            for e in self.entities:
+                e.draw(self.fb)
+            self.renderer.render()
+
+            # FPS/HUD line on the reserved bottom row (Terminal.cs:163).
+            with profiling.span("tick.hud"):
+                ft = time.perf_counter() - now
+                self._fps = 0.9 * self._fps + 0.1 * (1.0 / max(ft, 1e-6))
+                hud = (f"\x1b[{self.fb.height + 1};1H\x1b[0m\x1b[K"
+                       f" {self._fps:5.1f} fps | {ft * 1000.0:6.1f} ms | "
+                       f"{self.renderer.name} | {self.debug_string}")
+                os.write(self.out_fd, hud.encode())
+
+    def _dispatch_input(self):
+        self.input.update()
+        # Windowed backends queue their own key events
+        # (window_renderer.WindowTerminalRenderer._pump).
+        win_keys = getattr(self.renderer, "try_get_key", None)
+        while (key := self.input.try_get_key()
+               or (win_keys() if win_keys else None)) is not None:
+            if key in ("esc", "ctrl_c"):
+                self.running = False
+            elif key == "[":
+                self.cycle_backend(-1)
+            elif key == "]":
+                self.cycle_backend(+1)
+            else:
+                for e in self.entities:
+                    if e.handle_key(key):
+                        break
+        while (ev := self.input.try_get_mouse()) is not None:
+            for e in self.entities:
+                if e.handle_mouse(ev):
+                    break
 
     def stop(self):
         self.running = False

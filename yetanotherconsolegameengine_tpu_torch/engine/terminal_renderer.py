@@ -20,6 +20,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..native import load as load_native
+from ..utils import profiling
 from .chexel import Framebuffer, compose
 
 ESC = b"\x1b"
@@ -124,15 +125,18 @@ class ANSITerminalRenderer(TerminalRendererBase):
             self._size = (cols, lines)
             self._prev = None
             os.write(self.out_fd, b"\x1b[2J")
-        fb = compose(self.framebuffers, cols, lines)
-        g = np.ascontiguousarray(fb.glyph)
-        f = np.ascontiguousarray(fb.fg_ansi)
-        b = np.ascontiguousarray(fb.bg_ansi)
-        data = self._encode_native(g, f, b, 1)
-        if data is None:
-            data = _py_encode(g, f, b, 1)
+        with profiling.span("present.compose"):
+            fb = compose(self.framebuffers, cols, lines)
+            g = np.ascontiguousarray(fb.glyph)
+            f = np.ascontiguousarray(fb.fg_ansi)
+            b = np.ascontiguousarray(fb.bg_ansi)
+        with profiling.span("present.encode"):
+            data = self._encode_native(g, f, b, 1)
+            if data is None:
+                data = _py_encode(g, f, b, 1)
         if data:
-            os.write(self.out_fd, data)  # the single-syscall frame write
+            with profiling.span("present.write"):
+                os.write(self.out_fd, data)  # the single-syscall frame write
         self._prev = (g, f, b)
 
 

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import kernels
 
 TILE = 256         # rays per tile
@@ -138,7 +139,7 @@ def trace_tiles_plain(lens, ids, entry_t, gmat, rays, any_hit: bool,
         want = key_of(entry_t[:, e].contiguous(), qmask)[:, None] <= bound
         alive = alive & want.any(1)
         live = alive & (e < lens)
-        if not bool(live.any()):
+        if not profiling.sync("cluster_kernel.live", bool, live.any()):
             break
         cid = ids[:, e]
         g = gmat[cid.long()][:, :, None, :]           # (n_tiles, 12, 1, kc)

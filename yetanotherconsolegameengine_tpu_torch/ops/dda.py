@@ -42,6 +42,7 @@ import torch
 
 from ..devices import resolve_device, resolve_impl
 from ..scene._tensors import Tensors
+from ..utils import profiling
 from . import kernels
 from .intersect import INF, Hit, _col, _lanes, _safe_div
 
@@ -60,7 +61,7 @@ MAX_CELLS = 2 ** 31 - 1
 
 # Work counters of the DDA (sweeps; the plain loop's rounds, host waits and
 # compactions), for the frame profiler; ``STATS.clear()`` resets them.
-STATS = collections.Counter()
+STATS = profiling.register("dda.stats", collections.Counter())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,12 +235,13 @@ def intersect_voxels(w: VoxelWorld, o, d, tmin, tmax,
             _step(cur, g)
         STATS["rounds"] += CHECK_EVERY
         STATS["waits"] += 1
-        n_alive = int(cur["alive"].sum())
+        n_alive = profiling.sync("dda.alive", int, cur["alive"].sum())
         if n_alive == 0:
             break
         width = cur["alive"].shape[0]
         if compact and width >= COMPACT_MIN and 4 * n_alive <= width:
-            keep = torch.nonzero(cur["alive"])[:, 0]
+            keep = profiling.sync("dda.compact", torch.nonzero,
+                                  cur["alive"])[:, 0]
             if lanes is not None:
                 _write_back(full, cur, lanes)
             cur = {k: x[keep] for k, x in cur.items()}

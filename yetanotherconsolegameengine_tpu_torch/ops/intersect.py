@@ -27,6 +27,7 @@ import dataclasses
 import torch
 
 from ..devices import resolve_impl
+from ..utils import profiling
 
 INF = 3.0e38
 
@@ -76,9 +77,15 @@ def _safe_div(num, den, eps=1e-12):
 
 
 def _col(v, o):
-    """Scalar or (P,) bound -> (P, 1) f32."""
-    return torch.as_tensor(v, dtype=torch.float32,
-                           device=o.device).expand(o.shape[0])[:, None]
+    """Scalar or (P,) bound -> (P, 1) f32. A Python number is copied from
+    the host, a blocking copy on a card (the tracer's
+    ``intersect.bound_upload``)."""
+    if isinstance(v, torch.Tensor):
+        t = torch.as_tensor(v, dtype=torch.float32, device=o.device)
+    else:
+        t = profiling.sync("intersect.bound_upload", torch.as_tensor, v,
+                           dtype=torch.float32, device=o.device)
+    return t.expand(o.shape[0])[:, None]
 
 
 def _lanes(v, o):

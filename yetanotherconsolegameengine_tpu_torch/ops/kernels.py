@@ -24,6 +24,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -31,7 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel, so a run can show the main path went through the kernels.
-LAUNCHES = {"trace": 0, "post": 0, "clusters": 0, "bvh": 0, "dda": 0}
+LAUNCHES = profiling.register(
+    "kernels.launches",
+    {"trace": 0, "post": 0, "clusters": 0, "bvh": 0, "dda": 0})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,8 +63,9 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero ``LAUNCHES`` and every other total of the tracer's registry
+    (``utils/profiling.py``)."""
+    profiling.reset()
 
 
 def warp_efficiency(lane) -> float:

@@ -39,6 +39,7 @@ import torch
 
 from ..devices import resolve_impl
 from ..scene._tensors import Tensors
+from ..utils import profiling
 from . import kernels
 from .intersect import INF, Hit, _col, _lanes, _safe_div, cross3, dot3
 
@@ -63,7 +64,7 @@ HEAD_BUDGET = 128 * 1024
 
 # Work counters of the walk (sweeps; the plain walk's rounds, host waits
 # and compactions), for the frame profiler; ``STATS.clear()`` resets them.
-STATS = collections.Counter()
+STATS = profiling.register("mesh_bvh.stats", collections.Counter())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,12 +359,13 @@ def intersect_mesh(bvh: MeshBVH, o, d, tmin, tmax, compact: bool = True,
         STATS["rounds"] += CHECK_EVERY
         STATS["waits"] += 1
         walking = cur["node"] < n_nodes
-        n_walking = int(walking.sum())
+        n_walking = profiling.sync("mesh_bvh.walking", int, walking.sum())
         if n_walking == 0:
             break
         width = cur["node"].shape[0]
         if compact and width >= COMPACT_MIN and 4 * n_walking <= width:
-            keep = torch.nonzero(walking)[:, 0]
+            keep = profiling.sync("mesh_bvh.compact", torch.nonzero,
+                                  walking)[:, 0]
             if lanes is not None:
                 _write_back(full, cur, lanes)
             cur = {k: x[keep] for k, x in cur.items()}

@@ -34,6 +34,7 @@ import torch
 
 from ..devices import resolve_impl
 from ..scene._tensors import Tensors
+from ..utils import profiling
 from . import cluster_kernel
 from .intersect import INF, Hit, _safe_div, cross3, dot3
 
@@ -270,8 +271,12 @@ def _sort_keys(o, d, active, bounds):
 
 
 def _column(x, P, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32,
-                           device=device).expand(P).contiguous()
+    if isinstance(x, torch.Tensor):
+        t = torch.as_tensor(x, dtype=torch.float32, device=device)
+    else:   # a blocking copy from the host on a card
+        t = profiling.sync("mesh_clusters.bound_upload", torch.as_tensor, x,
+                           dtype=torch.float32, device=device)
+    return t.expand(P).contiguous()
 
 
 def intersect_clusters(mc: MeshClusters, o, d, tmin, tmax,

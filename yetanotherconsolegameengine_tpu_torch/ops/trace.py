@@ -36,6 +36,7 @@ from ..config import RenderConfig
 from ..core import sampler
 from ..devices import resolve_impl
 from ..scene.materials import gather_material, sample_albedo
+from ..utils import profiling
 from .intersect import INF, dot3, intersect_scene
 
 EPS = 1e-4
@@ -105,7 +106,8 @@ def transmittance_to_lights(scene, so, sd, max_dist, need, cfg: RenderConfig,
     """Colored transmittance along shadow rays (binary occlusion when the
     scene asks for binary shadows). so/sd: (R, 3); max_dist, need: (R,).
     ``lod`` sends the mesh sweep to the shadow / LOD proxy set; ``presort``
-    (default ``cfg.presort_shadow``) bins the rays first.
+    (default ``cfg.presort_shadow``) bins the rays first. Each sweep counts
+    in the tracer's ``wavefront.shadow_sweeps``.
     Returns ((R, 3) transmittance, (R,) int32 traced shadow rays per lane)."""
     impl = resolve_impl(impl, so.device)
     so = torch.where(need[:, None], so, 2.9e30)
@@ -113,6 +115,7 @@ def transmittance_to_lights(scene, so, sd, max_dist, need, cfg: RenderConfig,
         presort = cfg.presort_shadow
     sweep = dict(shadow=True, lod=lod, presort=presort, impl=impl)
     if scene.binary_shadows:
+        profiling.count("wavefront.shadow_sweeps")
         h = intersect_scene(scene, so, sd, 1e-3, max_dist, **sweep)
         return (torch.where(h.hit[:, None], 0.0, torch.ones_like(so)),
                 need.to(torch.int32))
@@ -122,9 +125,10 @@ def transmittance_to_lights(scene, so, sd, max_dist, need, cfg: RenderConfig,
     rays = torch.zeros(need.shape, dtype=torch.int32, device=so.device)
     for _ in range(cfg.max_refractions):
         live = need & ~done
-        if not bool(live.any()):
+        if not profiling.sync("trace.shadow_live", bool, live.any()):
             break
         rays = rays + live.to(torch.int32)
+        profiling.count("wavefront.shadow_sweeps")
         h = intersect_scene(scene, so, sd, tmin, max_dist, **sweep)
         m = gather_material(scene.materials, h.mat)
         opaque = h.hit & (m.transparency <= 0.0) & ~done
@@ -169,7 +173,7 @@ def _compact(full: dict, cur: dict, lanes):
     """Gather ``cur``'s active lanes into a new sub-wavefront. ``lanes``
     maps ``cur``'s lanes to ``full``'s (None: ``cur`` is ``full``); the
     outputs of ``cur`` are written back first. Waits on the host once."""
-    keep = torch.nonzero(cur["active"])[:, 0]
+    keep = profiling.sync("trace.compact", torch.nonzero, cur["active"])[:, 0]
     if lanes is not None:
         _write_back(full, cur, lanes)
     sub = {k: cur[k][keep] for k in _CARRY if k in cur}
@@ -328,21 +332,25 @@ def trace_all(scene, o0, d0, rng0, cfg: RenderConfig,
                     & (lt.intensity[None] > 0.0))
             so = (p + n * EPS)[:, None, :].expand(W, L, 3)
             smax = dist - EPS
-            if lmaj:
-                trans, shadow_rays = transmittance_to_lights(
-                    scene, so.transpose(0, 1).reshape(L * W, 3),
-                    ldir.transpose(0, 1).reshape(L * W, 3),
-                    smax.T.reshape(L * W), need.T.reshape(L * W), cfg,
-                    lod=use_lod, presort=False, impl=impl)
-                trans = trans.reshape(L, W, 3).transpose(0, 1)
-                shadow_rays = shadow_rays.reshape(L, W).T
-            else:
-                trans, shadow_rays = transmittance_to_lights(
-                    scene, so.reshape(W * L, 3), ldir.reshape(W * L, 3),
-                    smax.reshape(W * L), need.reshape(W * L), cfg,
-                    lod=use_lod, impl=impl)
-                trans = trans.reshape(W, L, 3)
-                shadow_rays = shadow_rays.reshape(W, L)
+            # The span wraps the call, not the loop's body: a profiler
+            # range opened inside a range that a tool wraps around
+            # transmittance_to_lights would take its kernels from it.
+            with profiling.span("wavefront.shadow"):
+                if lmaj:
+                    trans, shadow_rays = transmittance_to_lights(
+                        scene, so.transpose(0, 1).reshape(L * W, 3),
+                        ldir.transpose(0, 1).reshape(L * W, 3),
+                        smax.T.reshape(L * W), need.T.reshape(L * W), cfg,
+                        lod=use_lod, presort=False, impl=impl)
+                    trans = trans.reshape(L, W, 3).transpose(0, 1)
+                    shadow_rays = shadow_rays.reshape(L, W).T
+                else:
+                    trans, shadow_rays = transmittance_to_lights(
+                        scene, so.reshape(W * L, 3), ldir.reshape(W * L, 3),
+                        smax.reshape(W * L), need.reshape(W * L), cfg,
+                        lod=use_lod, impl=impl)
+                    trans = trans.reshape(W, L, 3)
+                    shadow_rays = shadow_rays.reshape(W, L)
             st["lane_rays"] = st["lane_rays"] + shadow_rays.sum(
                 1, dtype=torch.int32)
             atten = lt.intensity[None] / dist2
@@ -403,7 +411,8 @@ def trace_all(scene, o0, d0, rng0, cfg: RenderConfig,
             cur, lanes = _compact(st, cur, lanes)
             if lanes.numel() == 0:
                 break
-        elif not bool(cur["active"].any()):
+        elif not profiling.sync("trace.round_live", bool,
+                                cur["active"].any()):
             break
         body(cur, lod_sweep=rnd > 0)
     if lanes is not None:

@@ -54,6 +54,7 @@ from ..core.camera import (CameraPose, make_jittered_rays, pixel_grid,
 from ..devices import resolve_device, resolve_impl
 from ..ops import ansi, post_kernel, taa, tonemap, trace, trace_kernel
 from ..scene.tables import SceneData
+from ..utils import profiling
 
 BLOCK = 16   # primary lanes of cluster scenes in BLOCK x BLOCK pixel blocks
 
@@ -107,8 +108,11 @@ def init_state(fb_w: int, fb_h: int, ss: int = 1, device="cuda",
 
 def stack_poses(poses, fov_deg: float, device) -> CameraPose:
     """[(pos, yaw, pitch), ...] -> a CameraPose with a leading (N,) axis,
-    uploaded in one copy per field."""
-    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    uploaded in one copy per field (on a card each a blocking copy, the
+    tracer's ``renderer.pose_upload``)."""
+    def f(a):
+        host = torch.from_numpy(np.asarray(a, np.float32))
+        return profiling.sync("renderer.pose_upload", host.to, device)
     return CameraPose(pos=f([p for (p, _, _) in poses]),
                       yaw=f([y for (_, y, _) in poses]),
                       pitch=f([pt for (_, _, pt) in poses]),
@@ -216,57 +220,63 @@ def frame_step(packed, cams: CameraPose, inputs, row: int,
     hi_w, hi_h = fb_w * ss, fb_h * 2 * ss
     params, frames, resets = inputs
     rows = None if shard is None else (shard.y0, shard.y1)
-    if isinstance(packed, SceneData):
-        gbuf = trace_wavefront_planes(packed, params[row], frames[row],
-                                      hi_w, hi_h, cfg, impl, rows)
-    elif impl == "kernel":
-        gbuf = trace_kernel.trace_planes(packed, params, frames, row,
-                                         hi_w, hi_h, cfg, rows)
-    else:
-        gbuf = trace_kernel.trace_planes_plain(
-            packed.scene, params[row], int(frames[row]), hi_w, hi_h, cfg,
-            rows)
-    kernel = impl == "kernel"
-    fuse_tail = ss == 1
-    step = max(2, ss * 2)
-    rays = gbuf[11].to(torch.int64).sum()
-    if shard is None:
-        post = post_kernel.post if kernel else post_kernel.post_plain
-        blended, img, idx, new_ae = post(
-            gbuf, state.prev_gbuf, state.history, state.history_valid,
-            resets[row], state.ae_exposure, cfg, step, fuse_tail)
-    else:
-        band = post_kernel.post_band if kernel else post_kernel.post_band_plain
-        tail = (post_kernel.post_band_tail if kernel
-                else post_kernel.post_band_tail_plain)
-        gbuf, history = group.extend(shard, gbuf, state.history)
-        blended, denoised, part = band(
-            gbuf, state.prev_gbuf, history, state.history_valid, resets[row],
-            cfg, step, shard.ext[0], shard.own)
-        total, rays = group.combine(part, rays)
-        img, idx, new_ae = tail(denoised, total, state.ae_exposure, cfg,
-                                fuse_tail)
-    if fuse_tail:
-        # Even/odd rows are the top/bottom halves of each cell.
-        mapped = img.permute(1, 2, 0)
-        top, bot = mapped[0::2], mapped[1::2]
-        fg, bg = idx[0::2], idx[1::2]
-    else:
-        cells = img.permute(1, 2, 0).reshape(-1, 2, ss, fb_w, ss, 3) \
-            .mean(dim=(2, 4))
-        exposure = cfg.tone_exposure * new_ae
-        top = tonemap.map_pixels(cells[:, 0], exposure, cfg)
-        bot = tonemap.map_pixels(cells[:, 1], exposure, cfg)
-        fg, bg = ansi.rgb_to_ansi256(top), ansi.rgb_to_ansi256(bot)
-    out = FrameOutput(top_rgb=top, bot_rgb=bot, fg_ansi=fg, bg_ansi=bg,
-                      rays_traced=rays)
-    new_state = FrameState(
-        history=blended, prev_gbuf=gbuf,
-        history_valid=torch.ones((), dtype=torch.bool, device=gbuf.device),
-        ae_exposure=new_ae, last_cam=cams.pos[row], last_yaw=cams.yaw[row],
-        last_pitch=cams.pitch[row], have_last=state.history_valid.new_ones(()),
-        frame_idx=state.frame_idx + 1)
-    return out, new_state
+    with profiling.span("frame.trace"):
+        if isinstance(packed, SceneData):
+            gbuf = trace_wavefront_planes(packed, params[row], frames[row],
+                                          hi_w, hi_h, cfg, impl, rows)
+        elif impl == "kernel":
+            gbuf = trace_kernel.trace_planes(packed, params, frames, row,
+                                             hi_w, hi_h, cfg, rows)
+        else:
+            gbuf = trace_kernel.trace_planes_plain(
+                packed.scene, params[row],
+                profiling.sync("renderer.frame_index", int, frames[row]),
+                hi_w, hi_h, cfg, rows)
+    with profiling.span("frame.post"):
+        kernel = impl == "kernel"
+        fuse_tail = ss == 1
+        step = max(2, ss * 2)
+        rays = gbuf[11].to(torch.int64).sum()
+        if shard is None:
+            post = post_kernel.post if kernel else post_kernel.post_plain
+            blended, img, idx, new_ae = post(
+                gbuf, state.prev_gbuf, state.history, state.history_valid,
+                resets[row], state.ae_exposure, cfg, step, fuse_tail)
+        else:
+            band = (post_kernel.post_band if kernel
+                    else post_kernel.post_band_plain)
+            tail = (post_kernel.post_band_tail if kernel
+                    else post_kernel.post_band_tail_plain)
+            gbuf, history = group.extend(shard, gbuf, state.history)
+            blended, denoised, part = band(
+                gbuf, state.prev_gbuf, history, state.history_valid,
+                resets[row], cfg, step, shard.ext[0], shard.own)
+            total, rays = group.combine(part, rays)
+            img, idx, new_ae = tail(denoised, total, state.ae_exposure, cfg,
+                                    fuse_tail)
+        if fuse_tail:
+            # Even/odd rows are the top/bottom halves of each cell.
+            mapped = img.permute(1, 2, 0)
+            top, bot = mapped[0::2], mapped[1::2]
+            fg, bg = idx[0::2], idx[1::2]
+        else:
+            cells = img.permute(1, 2, 0).reshape(-1, 2, ss, fb_w, ss, 3) \
+                .mean(dim=(2, 4))
+            exposure = cfg.tone_exposure * new_ae
+            top = tonemap.map_pixels(cells[:, 0], exposure, cfg)
+            bot = tonemap.map_pixels(cells[:, 1], exposure, cfg)
+            fg, bg = ansi.rgb_to_ansi256(top), ansi.rgb_to_ansi256(bot)
+        out = FrameOutput(top_rgb=top, bot_rgb=bot, fg_ansi=fg, bg_ansi=bg,
+                          rays_traced=rays)
+        new_state = FrameState(
+            history=blended, prev_gbuf=gbuf,
+            history_valid=torch.ones((), dtype=torch.bool,
+                                     device=gbuf.device),
+            ae_exposure=new_ae, last_cam=cams.pos[row],
+            last_yaw=cams.yaw[row], last_pitch=cams.pitch[row],
+            have_last=state.history_valid.new_ones(()),
+            frame_idx=state.frame_idx + 1)
+        return out, new_state
 
 
 def _rgb_u8(x: torch.Tensor) -> torch.Tensor:
@@ -296,14 +306,15 @@ def frame_scan(packed, cams: CameraPose, state: FrameState, fb_w: int,
                              "set_scene(..., static=False)")
         if len(ts) != n:
             raise ValueError(f"{len(ts)} times for {n} frames")
-    inputs = frame_inputs(cams, state, fb_w * ss, fb_h * 2 * ss, cfg)
-    if isinstance(packed, SceneData) and packed.has_dynamic_textures:
-        # A live texture changes every frame: no history to blend.
-        inputs = inputs[:2] + (torch.ones_like(inputs[2]),)
-    shapes = [(n, fb_h, fb_w)] * 2 + ([(n, fb_h, fb_w, 3)] * 2
-                                       if stack_rgb else [])
-    grids = tuple(torch.empty(s, dtype=torch.uint8, device=dev)
-                  for s in shapes)
+    with profiling.span("render.prep"):
+        inputs = frame_inputs(cams, state, fb_w * ss, fb_h * 2 * ss, cfg)
+        if isinstance(packed, SceneData) and packed.has_dynamic_textures:
+            # A live texture changes every frame: no history to blend.
+            inputs = inputs[:2] + (torch.ones_like(inputs[2]),)
+        shapes = [(n, fb_h, fb_w)] * 2 + ([(n, fb_h, fb_w, 3)] * 2
+                                           if stack_rgb else [])
+        grids = tuple(torch.empty(s, dtype=torch.uint8, device=dev)
+                      for s in shapes)
     out = None
     for row in range(n):
         scene = packed
@@ -313,11 +324,12 @@ def frame_scan(packed, cams: CameraPose, state: FrameState, fb_w: int,
                 scene = scene.to(dev)
         out, state = frame_step(scene, cams, inputs, row, state, fb_w, fb_h,
                                 ss, cfg, impl)
-        grids[0][row] = out.fg_ansi
-        grids[1][row] = out.bg_ansi
-        if stack_rgb:
-            grids[2][row] = _rgb_u8(out.top_rgb)
-            grids[3][row] = _rgb_u8(out.bot_rgb)
+        with profiling.span("frame.post"):
+            grids[0][row] = out.fg_ansi
+            grids[1][row] = out.bg_ansi
+            if stack_rgb:
+                grids[2][row] = _rgb_u8(out.top_rgb)
+                grids[3][row] = _rgb_u8(out.bot_rgb)
     return grids, out, state
 
 
@@ -419,12 +431,14 @@ class RaytraceRenderer:
         ``times`` + ``scene_fn`` render a scene that changes per frame:
         frame k is ``scene_fn(times[k])`` (e.g. ``DynamicScene.at_time``;
         the renderer's scene must be set with ``static=False``)."""
-        self._update_video_textures()
-        if poses is None:
-            poses = [(self.cam_pos, self.yaw, self.pitch)] * n
-        cams = stack_poses(poses, self.fov_deg, self.device)
-        ts = None if times is None else [float(t) for t in times]
-        grids, out, self.state = frame_scan(
-            self.packed, cams, self.state, self.fb_w, self.fb_h, self.ss,
-            self.cfg, self.impl, stack_rgb=rgb, scene_fn=scene_fn, ts=ts)
+        with profiling.span("render.call"):
+            with profiling.span("render.prep"):
+                self._update_video_textures()
+                if poses is None:
+                    poses = [(self.cam_pos, self.yaw, self.pitch)] * n
+                cams = stack_poses(poses, self.fov_deg, self.device)
+                ts = None if times is None else [float(t) for t in times]
+            grids, out, self.state = frame_scan(
+                self.packed, cams, self.state, self.fb_w, self.fb_h, self.ss,
+                self.cfg, self.impl, stack_rgb=rgb, scene_fn=scene_fn, ts=ts)
         return grids, out
