@@ -21,7 +21,7 @@ from yetanotherconsolegameengine_tpu_torch.ops import (cluster_kernel, dda,
                                                        kernels, lbvh,
                                                        mesh_bvh,
                                                        mesh_clusters,
-                                                       post_kernel,
+                                                       post_kernel, trace,
                                                        trace_kernel)
 from yetanotherconsolegameengine_tpu_torch.ops.intersect import INF
 from yetanotherconsolegameengine_tpu_torch.ops.trace import stack_slots
@@ -32,6 +32,7 @@ from yetanotherconsolegameengine_tpu_torch.scene.mesh_loader import (
     make_icosphere, make_knot)
 from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import (
     FORCED_SCENE_BUILDERS)
+from yetanotherconsolegameengine_tpu_torch.utils import profiling
 
 # The suite runs several xdist workers beside JAX's own thread pools;
 # torch's per-process intra-op pool would oversubscribe the cores.
@@ -864,3 +865,72 @@ def test_walk_and_dda_kernels_reject_bad_inputs(dev):
         for x, err in bad:
             with pytest.raises(err):
                 call(x)
+
+
+def _wavefront_frames(dev, scene, n=4, reassign=False):
+    """``n`` frames of ``scene`` at 40x23 cells through the renderer, the
+    camera turning a little each frame: each frame's G-buffer, outputs,
+    state and counts (``reassign``: the scene assigned anew every frame)."""
+    r = RaytraceRenderer(scene, 40, 23, device=dev)
+    assert isinstance(r.packed, type(r.scene))      # the wavefront
+    frames = []
+    for k in range(n):
+        if reassign:
+            r.scene = scene
+        r.set_camera(r.cam_pos, r.yaw + 0.05 * k, r.pitch)
+        kernels.reset_launches()
+        out = r.render()
+        torch.cuda.synchronize()
+        planes = {f.name: getattr(out, f.name).clone()
+                  for f in dataclasses.fields(out)}
+        planes.update(gbuf=r.state.prev_gbuf.clone(),
+                      history=r.state.history.clone(),
+                      exposure=r.state.ae_exposure.clone())
+        counts = (kernels.LAUNCHES["bvh"], kernels.LAUNCHES["dda"],
+                  mesh_bvh.STATS["sweeps"],
+                  profiling.COUNTS["wavefront.shadow_sweeps"],
+                  profiling.SYNCS["trace.round_live"],
+                  profiling.SYNCS["trace.shadow_live"])
+        graphs = tuple(profiling.COUNTS[f"wavefront.{c}"] for c in
+                       ("graph_captures", "graph_replays", "eager_segments"))
+        frames.append((planes, counts, graphs))
+    trace._GRAPHS = None
+    return frames
+
+
+@pytest.mark.parametrize("name", ["museum", "bunny", "teapot", "glass_gem",
+                                  "texture_test", "voxel_cave"])
+def test_wavefront_graphs_replay_the_eager_frames_bit_for_bit(dev, name,
+                                                              monkeypatch):
+    """From the second frame of a scene on, the wavefront replays CUDA
+    graphs: every plane equal to the eager frame's, and per frame the same
+    walk and DDA launches, sweeps, shadow sweeps and live checks."""
+    scene = SCENE_BUILDERS[name]()
+    monkeypatch.setattr(trace, "WAVEFRONT_GRAPHS", False)
+    eager = _wavefront_frames(dev, scene)
+    monkeypatch.setattr(trace, "WAVEFRONT_GRAPHS", True)
+    graphed = _wavefront_frames(dev, scene)
+    for k, ((want, want_n, off), (got, got_n, _)) in enumerate(
+            zip(eager, graphed)):
+        for key, x in want.items():
+            assert torch.equal(x, got[key]), (k, key)
+        assert want_n == got_n, k
+        assert off[:2] == (0, 0) and off[2] > 0
+    kinds = [g for _, _, g in graphed]
+    assert kinds[0][:2] == (0, 0)               # the first frame: eager
+    assert kinds[1][0] >= 4                     # captures, from the second
+    for captures, replays, eager_segments in kinds[2:]:
+        assert (captures, eager_segments) == (0, 0) and replays > 0
+
+
+@pytest.mark.parametrize("case", ["cluster_forced", "reassigned"])
+def test_wavefront_graphs_stay_off_where_shapes_or_scene_change(dev, case):
+    """A cluster-mesh scene (its wavefront compacts) and a scene assigned
+    anew every frame run eagerly."""
+    if case == "cluster_forced":
+        frames = _wavefront_frames(dev, FORCED_SCENE_BUILDERS[case]())
+    else:
+        frames = _wavefront_frames(dev, SCENE_BUILDERS["bunny"](),
+                                   reassign=True)
+    for _, _, (captures, replays, eager) in frames:
+        assert (captures, replays) == (0, 0) and eager > 0

@@ -70,3 +70,19 @@ def test_intersect_scene_matches_jax(scene):
     got = intersect.intersect_scene(psc, torch.from_numpy(o),
                                     torch.from_numpy(d), 1e-3, intersect.INF)
     _compare(want, got)
+
+
+@pytest.mark.parametrize("v", [1e-3, 1e-4, intersect.INF, 2.9e30, 0.1, -7.3])
+def test_col_fills_a_bound_as_the_host_copy_gave_it(v):
+    """A Python bound is filled on the device with the float32 that a copy
+    from the host gave, as a (P, 1) column, and waits on nothing; a tensor
+    bound is as before."""
+    from yetanotherconsolegameengine_tpu_torch.utils import profiling
+    o = torch.zeros((5, 3))
+    profiling.reset()
+    for bound in (v, v * torch.tensor([1.0, 0.5, 0.25, 2.0 ** -20, 0.0])):
+        got = intersect._col(bound, o)
+        want = torch.as_tensor(bound, dtype=torch.float32).expand(5)[:, None]
+        assert (got.dtype, got.shape) == (want.dtype, want.shape)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not profiling.SYNCS

@@ -27,7 +27,6 @@ import dataclasses
 import torch
 
 from ..devices import resolve_impl
-from ..utils import profiling
 
 INF = 3.0e38
 
@@ -77,14 +76,13 @@ def _safe_div(num, den, eps=1e-12):
 
 
 def _col(v, o):
-    """Scalar or (P,) bound -> (P, 1) f32. A Python number is copied from
-    the host, a blocking copy on a card (the tracer's
-    ``intersect.bound_upload``)."""
+    """Scalar or (P,) bound -> (P, 1) f32. A Python number is filled on
+    the device, the float32 that a copy from the host would give, so a
+    sweep neither waits on the host nor breaks a CUDA graph's capture."""
     if isinstance(v, torch.Tensor):
         t = torch.as_tensor(v, dtype=torch.float32, device=o.device)
     else:
-        t = profiling.sync("intersect.bound_upload", torch.as_tensor, v,
-                           dtype=torch.float32, device=o.device)
+        t = torch.full((), float(v), dtype=torch.float32, device=o.device)
     return t.expand(o.shape[0])[:, None]
 
 

@@ -23,12 +23,21 @@ the wavefront compacts to its active lanes (``WAVEFRONT_COMPACTION``);
 BVH-mesh and primitive scenes do neither, as in the JAX module. ``impl``
 picks the cluster sweep: "kernel" (K3) or "plain"; None picks from the
 rays' device (``devices.resolve_impl``).
+
+A frame runs as segments with no host wait inside, cut at the host's
+checks for live lanes and shadow rays. On a card, where every round has
+the full width and the scene, width and config are the previous call's,
+the segments replay from CUDA graphs (``_Graphs``), so the host launches
+a few dozen graphs a frame instead of thousands of kernels; the arithmetic
+is the eager frame's line for line.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import weakref
 
 import torch
 
@@ -48,6 +57,10 @@ STACK_CLAMP = True
 # Between-round wavefront compaction of cluster-mesh scenes, at every size.
 # Tests turn it off for the reference the compacted loop must equal.
 WAVEFRONT_COMPACTION = True
+
+# CUDA graphs of the wavefront's segments where ``_graphs_for`` allows them.
+# Tests turn it off for the eager frames the replayed ones must equal.
+WAVEFRONT_GRAPHS = True
 
 
 def reflect(v, n):
@@ -102,34 +115,48 @@ def oren_nayar(albedo, n, wo, wi, sigma_rad: float):
 
 def transmittance_to_lights(scene, so, sd, max_dist, need, cfg: RenderConfig,
                             lod: bool = False, presort=None,
-                            impl=None):
+                            impl=None, graphs=None):
     """Colored transmittance along shadow rays (binary occlusion when the
     scene asks for binary shadows). so/sd: (R, 3); max_dist, need: (R,).
     ``lod`` sends the mesh sweep to the shadow / LOD proxy set; ``presort``
     (default ``cfg.presort_shadow``) bins the rays first. Each sweep counts
-    in the tracer's ``wavefront.shadow_sweeps``.
+    in the tracer's ``wavefront.shadow_sweeps``. The loop runs as segments
+    with no host wait inside (``shadow.start``, one ``shadow.step`` a
+    sweep, ``shadow.end``); the check for live rays between them stays on
+    the host. ``graphs`` (``trace_all``'s ``_Graphs``) replays them from
+    CUDA graphs; None runs them eagerly.
     Returns ((R, 3) transmittance, (R,) int32 traced shadow rays per lane)."""
     impl = resolve_impl(impl, so.device)
-    so = torch.where(need[:, None], so, 2.9e30)
     if presort is None:
         presort = cfg.presort_shadow
-    sweep = dict(shadow=True, lod=lod, presort=presort, impl=impl)
-    if scene.binary_shadows:
-        profiling.count("wavefront.shadow_sweeps")
-        h = intersect_scene(scene, so, sd, 1e-3, max_dist, **sweep)
-        return (torch.where(h.hit[:, None], 0.0, torch.ones_like(so)),
-                need.to(torch.int32))
-    trans = torch.ones_like(so)
-    done = torch.zeros_like(need)
-    tmin = torch.full_like(max_dist, EPS)
-    rays = torch.zeros(need.shape, dtype=torch.int32, device=so.device)
-    for _ in range(cfg.max_refractions):
-        live = need & ~done
-        if not profiling.sync("trace.shadow_live", bool, live.any()):
-            break
-        rays = rays + live.to(torch.int32)
-        profiling.count("wavefront.shadow_sweeps")
-        h = intersect_scene(scene, so, sd, tmin, max_dist, **sweep)
+    run = _eager if graphs is None else graphs.run
+
+    def sweep(sh, tmin):
+        return intersect_scene(scene, sh["so"], sh["sd"], tmin,
+                               sh["max_dist"], shadow=True, lod=lod,
+                               presort=presort, impl=impl)
+
+    def binary(sh):
+        so = torch.where(sh["need"][:, None], sh["so"], 2.9e30)
+        h = sweep(dict(sh, so=so), 1e-3)
+        sh["trans"] = torch.where(h.hit[:, None], 0.0, torch.ones_like(so))
+        sh["rays"] = sh["need"].to(torch.int32)
+
+    def start(sh):
+        need = sh["need"]
+        sh["so"] = torch.where(need[:, None], sh["so"], 2.9e30)
+        sh["trans"] = torch.ones_like(sh["so"])
+        sh["done"] = torch.zeros_like(need)
+        sh["tmin"] = torch.full_like(sh["max_dist"], EPS)
+        sh["rays"] = torch.zeros(need.shape, dtype=torch.int32,
+                                 device=need.device)
+        sh["live"] = need & ~sh["done"]
+        sh["live_any"] = sh["live"].any()
+
+    def step(sh):
+        done, trans = sh["done"], sh["trans"]
+        sh["rays"] = sh["rays"] + sh["live"].to(torch.int32)
+        h = sweep(sh, sh["tmin"])
         m = gather_material(scene.materials, h.mat)
         opaque = h.hit & (m.transparency <= 0.0) & ~done
         trans = torch.where(opaque[:, None], 0.0, trans)
@@ -138,9 +165,29 @@ def transmittance_to_lights(scene, so, sd, max_dist, need, cfg: RenderConfig,
         trans = torch.where(through[:, None], trans * tint, trans)
         faded = (trans <= 1e-6).all(-1)
         done = done | ~h.hit | opaque | faded
-        tmin = torch.where(done, tmin, h.t + EPS)
-    trans = torch.where((trans <= 1e-6).all(-1, keepdim=True), 0.0, trans)
-    return trans, rays
+        sh["tmin"] = torch.where(done, sh["tmin"], h.t + EPS)
+        sh.update(trans=trans, done=done)
+        sh["live"] = sh["need"] & ~done
+        sh["live_any"] = sh["live"].any()
+
+    def end(sh):
+        trans = sh["trans"]
+        sh["trans"] = torch.where((trans <= 1e-6).all(-1, keepdim=True), 0.0,
+                                  trans)
+
+    sh = dict(so=so, sd=sd, max_dist=max_dist, need=need)
+    if scene.binary_shadows:
+        profiling.count("wavefront.shadow_sweeps")
+        run("shadow.binary", binary, sh)
+        return sh["trans"], sh["rays"]
+    run("shadow.start", start, sh)
+    for _ in range(cfg.max_refractions):
+        if not profiling.sync("trace.shadow_live", bool, sh["live_any"]):
+            break
+        profiling.count("wavefront.shadow_sweeps")
+        run("shadow.step", step, sh)
+    run("shadow.end", end, sh)
+    return sh["trans"], sh["rays"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,13 +233,166 @@ def _write_back(full: dict, cur: dict, lanes) -> None:
         full[k].index_copy_(0, lanes, cur[k])
 
 
+def _eager(name: str, fn, state: dict) -> None:
+    """Run the segment ``fn`` on ``state`` now, launch by launch."""
+    profiling.count("wavefront.eager_segments")
+    fn(state)
+
+
+def _written(before: dict, after: dict) -> dict:
+    """The keys a segment put new tensors under, with those tensors."""
+    return {k: v for k, v in after.items() if before.get(k) is not v}
+
+
+class _CudaCapture:
+    """Captures a function's launches into a CUDA graph on ``device``;
+    the graphs of one ``_Graphs`` share a memory pool (each copies what
+    it keeps into buffers outside it, and they run one at a time)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.pool = None
+
+    def __call__(self, body):
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device), \
+                torch.cuda.graph(graph, pool=self.pool):
+            body()
+        return graph
+
+
+class _Graphs:
+    """The wavefront's segments as CUDA graphs, for one scene, ray count
+    and config.
+
+    A segment reads tensors of a state dict and puts new tensors under
+    some of its keys, with no host wait inside. The first run of a
+    segment name is eager: it warms the segment up (the kernel library,
+    the walk kernel's shared-memory attribute and launch shape, tables
+    the scene packs at first use) and does this frame's work. Its new
+    values are copied into fixed home buffers, one a key of the name's
+    space (the part before the dot), and the segment is captured reading
+    the tensors of the state it was given and copying its results into
+    the homes. Later runs check that the state holds those same tensors
+    and replay the capture. A capture launches nothing, so what it added
+    to the tracer's counts (kernel launches, sweeps) is taken back and
+    added again at each replay. A frame's rays and seeds are copied into
+    the homes of the keys they start (``input``). ``capture(body)``
+    returns an object whose ``replay()`` runs what ``body`` launched
+    (``_CudaCapture``)."""
+
+    def __init__(self, scene, key, capture):
+        self.scene = weakref.ref(scene)
+        self.key = key
+        self.capture = capture
+        self.graphs = {}    # name -> (graph, reads, writes, counts)
+        self.homes = {}     # (space, key) -> tensor
+
+    def input(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """``x`` copied into the home of ``name`` ("space.key"), which the
+        graphs read and the segments that write the key rewrite."""
+        key = tuple(name.split(".", 1))
+        home = self.homes.get(key)
+        if home is None:
+            home = self.homes[key] = x.clone()
+        else:
+            home.copy_(x)
+        return home
+
+    def run(self, name: str, fn, state: dict) -> None:
+        entry = self.graphs.get(name)
+        if entry is not None:
+            graph, reads, writes, counts = entry
+            if any(state.get(k) is not v for k, v in reads.items()):
+                raise RuntimeError(f"wavefront graph {name!r}: the state "
+                                   "holds other tensors than at its capture")
+            graph.replay()
+            profiling.add_totals(counts)
+            profiling.count("wavefront.graph_replays")
+            state.update(writes)
+            return
+        space = name.partition(".")[0]
+        reads = dict(state)
+        _eager(name, fn, state)
+        writes = {}
+        for k, v in _written(reads, state).items():
+            home = self.homes.get((space, k))
+            if home is None:
+                home = self.homes[(space, k)] = v.clone()
+            else:
+                home.copy_(v)
+            writes[k] = home
+        state.update(writes)
+
+        def body():
+            cap = dict(reads)
+            fn(cap)
+            got = _written(reads, cap)
+            if got.keys() != writes.keys():
+                raise RuntimeError(f"wavefront graph {name!r}: the capture "
+                                   "wrote other keys than the eager run")
+            for k, v in got.items():
+                writes[k].copy_(v)
+
+        before = profiling.totals()
+        graph = self.capture(body)
+        counts = {k: n - before.get(k, 0)
+                  for k, n in profiling.totals().items()
+                  if n != before.get(k, 0)}
+        profiling.add_totals(counts, -1)
+        profiling.count("wavefront.graph_captures")
+        self.graphs[name] = (graph, reads, writes, counts)
+
+
+# The one entry of the graph cache: the ``_Graphs`` of the last call that
+# could take them. A program traces from one thread.
+_GRAPHS = None
+
+
+def _graphs_for(scene, P: int, cfg: RenderConfig, dev, impl):
+    """The graphs a call replays, or None to run it eagerly. They need the
+    kernels on a card, a width that stays P every round (no cluster mesh,
+    so no compaction) and the same scene object, width and config as the
+    previous call; any other call drops them."""
+    global _GRAPHS
+    if not (WAVEFRONT_GRAPHS and dev.type == "cuda" and impl == "kernel"
+            and scene.mesh_clusters is None):
+        _GRAPHS = None
+        return None
+    key = (P, cfg, stack_slots(cfg), dev)
+    g = _GRAPHS
+    if g is not None and g.scene() is scene and g.key == key:
+        return g
+    _GRAPHS = _Graphs(scene, key, _CudaCapture(dev))
+    return None
+
+
 def trace_all(scene, o0, d0, rng0, cfg: RenderConfig,
               impl=None) -> TraceResult:
     """Trace every pixel's full path tree. o0/d0: (P, 3); rng0: (P,) int64
-    SplitMix64 states. ``impl`` picks the cluster-mesh sweep."""
+    SplitMix64 states. ``impl`` picks the cluster-mesh sweep.
+
+    A frame runs as segments with no host wait inside: ``wave.start``,
+    then a round's ``wave.head0`` (round 0) or ``wave.head`` (the
+    intersection up to the shadow rays' inputs), the shadow loop's
+    segments (``transmittance_to_lights``) and ``wave.tail`` (direct
+    light, bounce, pop and the next ``active`` mask); the checks for
+    active lanes stay on the host between them. Where ``_graphs_for``
+    allows, the segments replay from CUDA graphs (``WAVEFRONT_GRAPHS``),
+    bit for bit the eager frame."""
+    impl = resolve_impl(impl, o0.device)
+    graphs = _graphs_for(scene, o0.shape[0], cfg, o0.device, impl)
+    return _trace(scene, o0, d0, rng0, cfg, impl, graphs)
+
+
+def _trace(scene, o0, d0, rng0, cfg: RenderConfig, impl,
+           graphs) -> TraceResult:
+    """``trace_all``'s frame, its segments run by ``graphs.run`` (None:
+    eagerly)."""
     P = o0.shape[0]
     dev = o0.device
-    impl = resolve_impl(impl, dev)
     S = stack_slots(cfg)
     sigma_rad = cfg.diffuse_sigma_deg * math.pi / 180.0
     use_stack = scene.any_transparent
@@ -205,32 +405,41 @@ def trace_all(scene, o0, d0, rng0, cfg: RenderConfig,
     i1 = lambda: torch.zeros(P, dtype=torch.int32, device=dev)
     b1 = lambda v: torch.full((P,), v, dtype=torch.bool, device=dev)
 
-    st = dict(o=o0, d=d0, beta=torch.ones((P, 3), device=dev),
-              mirror=i1(), diffuse=i1(), active=b1(True), rng=rng0,
-              radiance=f3(), lane_rays=i1(),
-              is_primary=b1(True), primary_hit=b1(False), is_sky=b1(False),
-              g_valid=b1(False), g_albedo=f3(), g_normal=f3(),
-              g_depth=torch.full((P,), INF, device=dev))
-    if use_stack:
-        st.update(sp=i1(), st_o=torch.zeros((S, P, 3), device=dev),
-                  st_d=torch.zeros((S, P, 3), device=dev),
-                  st_beta=torch.zeros((S, P, 3), device=dev),
-                  st_mirror=torch.zeros((S, P), dtype=torch.int32,
-                                        device=dev),
-                  st_diffuse=torch.zeros((S, P), dtype=torch.int32,
-                                         device=dev))
-    slot = torch.arange(S, device=dev)[:, None]
-
     lt = scene.lights
     L = lt.mask.shape[0]
-    amb_rgb = scene.ambient_color * scene.ambient_intensity
     # Light-major shadow lanes: each 256-lane tile of the mesh sweep is
     # then consecutive rays toward one light, swept unsorted.
     lmaj = cfg.lmajor_shadow and L > 1 and mesh
+    # Round 0 on every lane; with compaction, every later round on the
+    # lanes still active (gathered once per round, in lane order, so tiles
+    # stay coherent). Per-lane arithmetic does not depend on the other
+    # lanes, so the result equals the uncompacted loop.
+    compact = WAVEFRONT_COMPACTION and mesh
+    run = _eager if graphs is None else graphs.run
 
-    def body(st: dict, lod_sweep: bool) -> None:
-        """One round on the lanes of ``st``, in place. ``lod_sweep``:
-        a round after round 0 (the LOD set; bounce populations binned)."""
+    def start(st: dict) -> None:
+        """A frame's lanes before round 0, beside its rays and seeds."""
+        st.update(beta=torch.ones((P, 3), device=dev), mirror=i1(),
+                  diffuse=i1(), active=b1(True), radiance=f3(),
+                  lane_rays=i1(), is_primary=b1(True),
+                  primary_hit=b1(False), is_sky=b1(False),
+                  g_valid=b1(False), g_albedo=f3(), g_normal=f3(),
+                  g_depth=torch.full((P,), INF, device=dev))
+        if use_stack:
+            st.update(sp=i1(), st_o=torch.zeros((S, P, 3), device=dev),
+                      st_d=torch.zeros((S, P, 3), device=dev),
+                      st_beta=torch.zeros((S, P, 3), device=dev),
+                      st_mirror=torch.zeros((S, P), dtype=torch.int32,
+                                            device=dev),
+                      st_diffuse=torch.zeros((S, P), dtype=torch.int32,
+                                             device=dev))
+        st["active_any"] = st["active"].any()
+
+    def head(st: dict, lod_sweep: bool) -> None:
+        """A round's intersection, sky, emission, G-buffer, pushes and
+        ambient light on the lanes of ``st``, in place, up to the shadow
+        rays' inputs (``shadow_*``). ``lod_sweep``: a round after round 0
+        (the LOD set; bounce populations binned)."""
         o, d, beta, active = st["o"], st["d"], st["beta"], st["active"]
         mirror, diffuse = st["mirror"], st["diffuse"]
         W = o.shape[0]
@@ -286,6 +495,7 @@ def trace_all(scene, o0, d0, rng0, cfg: RenderConfig,
 
         # ---- transparent: Fresnel-weighted reflect + refract pushes -------
         if use_stack:
+            slot = torch.arange(S, device=dev)[:, None]
             tr_act = transparent & can_bounce
             front = dot3(n, d) < 0.0
             nl = torch.where(front[:, None], n, -n)
@@ -317,10 +527,12 @@ def trace_all(scene, o0, d0, rng0, cfg: RenderConfig,
                                                st["st_diffuse"])
                 st["sp"] = st["sp"] + mask.to(torch.int32)
 
-        # ---- diffuse: ambient + direct lights + one cosine bounce ---------
-        wo = -d
+        # ---- diffuse: ambient, then the shadow rays' inputs ---------------
+        amb_rgb = scene.ambient_color * scene.ambient_intensity
         st["radiance"] = st["radiance"] + torch.where(
             is_diffuse[:, None], beta * (amb_rgb * base_albedo), 0.0)
+        st.update(p=p, n=n, albedo=base_albedo, can_bounce=can_bounce,
+                  is_mirror=is_mirror, is_diffuse=is_diffuse)
         if L > 0:
             to_l = lt.pos[None] - p[:, None, :]                 # (W, L, 3)
             dist2 = torch.clamp(dot3(to_l, to_l), min=1e-12)
@@ -332,33 +544,40 @@ def trace_all(scene, o0, d0, rng0, cfg: RenderConfig,
                     & (lt.intensity[None] > 0.0))
             so = (p + n * EPS)[:, None, :].expand(W, L, 3)
             smax = dist - EPS
-            # The span wraps the call, not the loop's body: a profiler
-            # range opened inside a range that a tool wraps around
-            # transmittance_to_lights would take its kernels from it.
-            with profiling.span("wavefront.shadow"):
-                if lmaj:
-                    trans, shadow_rays = transmittance_to_lights(
-                        scene, so.transpose(0, 1).reshape(L * W, 3),
-                        ldir.transpose(0, 1).reshape(L * W, 3),
-                        smax.T.reshape(L * W), need.T.reshape(L * W), cfg,
-                        lod=use_lod, presort=False, impl=impl)
-                    trans = trans.reshape(L, W, 3).transpose(0, 1)
-                    shadow_rays = shadow_rays.reshape(L, W).T
-                else:
-                    trans, shadow_rays = transmittance_to_lights(
-                        scene, so.reshape(W * L, 3), ldir.reshape(W * L, 3),
-                        smax.reshape(W * L), need.reshape(W * L), cfg,
-                        lod=use_lod, impl=impl)
-                    trans = trans.reshape(W, L, 3)
-                    shadow_rays = shadow_rays.reshape(W, L)
+            if lmaj:
+                rows = lambda x, *c: x.transpose(0, 1).reshape(L * W, *c)
+            else:
+                rows = lambda x, *c: x.reshape(W * L, *c)
+            st.update(need=need, ldir=ldir, dist2=dist2, ndotl=ndotl,
+                      shadow_o=rows(so, 3), shadow_d=rows(ldir, 3),
+                      shadow_max=rows(smax), shadow_need=rows(need))
+
+    def tail(st: dict) -> None:
+        """A round's direct light from the shadow loop's transmittance
+        (``shadow_trans``, ``shadow_rays``), bounce, and continue or pop,
+        on the lanes of ``st``, in place; then the next ``active`` mask."""
+        o, d, beta, active = st["o"], st["d"], st["beta"], st["active"]
+        mirror, diffuse = st["mirror"], st["diffuse"]
+        p, n, base_albedo = st["p"], st["n"], st["albedo"]
+        is_mirror, is_diffuse = st["is_mirror"], st["is_diffuse"]
+        W = o.shape[0]
+        wo = -d
+        if L > 0:
+            trans, shadow_rays = st["shadow_trans"], st["shadow_rays"]
+            if lmaj:
+                trans = trans.reshape(L, W, 3).transpose(0, 1)
+                shadow_rays = shadow_rays.reshape(L, W).T
+            else:
+                trans = trans.reshape(W, L, 3)
+                shadow_rays = shadow_rays.reshape(W, L)
             st["lane_rays"] = st["lane_rays"] + shadow_rays.sum(
                 1, dtype=torch.int32)
-            atten = lt.intensity[None] / dist2
+            atten = lt.intensity[None] / st["dist2"]
             f_on = oren_nayar(base_albedo[:, None, :], n[:, None, :],
-                              wo[:, None, :], ldir, sigma_rad)
-            contrib = (f_on * ndotl[..., None] * lt.color[None]
+                              wo[:, None, :], st["ldir"], sigma_rad)
+            contrib = (f_on * st["ndotl"][..., None] * lt.color[None]
                        * atten[..., None] * trans)
-            contrib = torch.where(need[..., None], contrib, 0.0)
+            contrib = torch.where(st["need"][..., None], contrib, 0.0)
             st["radiance"] = st["radiance"] + beta * contrib.sum(1)
 
         want_bounce = is_diffuse & (diffuse < cfg.diffuse_bounces)
@@ -368,7 +587,7 @@ def trace_all(scene, o0, d0, rng0, cfg: RenderConfig,
         bounce_beta = beta * f_bounce * math.pi
 
         # ---- continue in place vs pop -------------------------------------
-        mirror_cont = is_mirror & can_bounce
+        mirror_cont = is_mirror & st["can_bounce"]
         cont = mirror_cont | want_bounce
         c3 = cont[:, None]
         m3 = mirror_cont[:, None]
@@ -399,12 +618,14 @@ def trace_all(scene, o0, d0, rng0, cfg: RenderConfig,
             active = active & cont
         st.update(o=o, d=d, beta=beta, mirror=mirror, diffuse=diffuse,
                   active=active)
+        if not compact:
+            st["active_any"] = active.any()
 
-    # Round 0 on every lane; with compaction, every later round on the
-    # lanes still active (gathered once per round, in lane order, so tiles
-    # stay coherent). Per-lane arithmetic does not depend on the other
-    # lanes, so the result equals the uncompacted loop.
-    compact = WAVEFRONT_COMPACTION and mesh
+    if graphs is not None:
+        o0, d0, rng0 = (graphs.input(k, x) for k, x in
+                        (("wave.o", o0), ("wave.d", d0), ("wave.rng", rng0)))
+    st = dict(o=o0, d=d0, rng=rng0)
+    run("wave.start", start, st)
     cur, lanes = st, None
     for rnd in range(cfg.max_trace_rounds):
         if compact and rnd > 0:
@@ -412,14 +633,31 @@ def trace_all(scene, o0, d0, rng0, cfg: RenderConfig,
             if lanes.numel() == 0:
                 break
         elif not profiling.sync("trace.round_live", bool,
-                                cur["active"].any()):
+                                cur["active_any"]):
             break
-        body(cur, lod_sweep=rnd > 0)
+        run("wave.head" if rnd else "wave.head0",
+            functools.partial(head, lod_sweep=rnd > 0), cur)
+        if L > 0:
+            # The span wraps the call, not the loop's body: a profiler
+            # range opened inside a range that a tool wraps around
+            # transmittance_to_lights would take its kernels from it.
+            with profiling.span("wavefront.shadow"):
+                cur["shadow_trans"], cur["shadow_rays"] = \
+                    transmittance_to_lights(
+                        scene, cur["shadow_o"], cur["shadow_d"],
+                        cur["shadow_max"], cur["shadow_need"], cfg,
+                        lod=use_lod, presort=False if lmaj else None,
+                        impl=impl, graphs=graphs)
+        run("wave.tail", tail, cur)
     if lanes is not None:
         _write_back(st, cur, lanes)
 
-    return TraceResult(radiance=st["radiance"], is_sky=st["is_sky"],
-                       albedo=st["g_albedo"], normal=st["g_normal"],
-                       depth=st["g_depth"],
-                       rays_traced=st["lane_rays"].sum(dtype=torch.int64),
-                       lane_rays=st["lane_rays"])
+    out = {k: st[k] for k in ("radiance", "is_sky", "g_albedo", "g_normal",
+                              "g_depth", "lane_rays")}
+    if graphs is not None:   # the next frame's replays rewrite the homes
+        out = {k: v.clone() for k, v in out.items()}
+    return TraceResult(radiance=out["radiance"], is_sky=out["is_sky"],
+                       albedo=out["g_albedo"], normal=out["g_normal"],
+                       depth=out["g_depth"],
+                       rays_traced=out["lane_rays"].sum(dtype=torch.int64),
+                       lane_rays=out["lane_rays"])

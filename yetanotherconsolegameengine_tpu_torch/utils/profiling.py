@@ -21,7 +21,9 @@ port's one tracer and its registry of totals:
 - ``register(name, table)`` adds another module's counters to the
   registry (``kernels.LAUNCHES``, ``mesh_bvh.STATS``, ``dda.STATS``,
   which stay the same objects); ``reset()`` clears the whole registry
-  (``kernels.reset_launches()`` calls it).
+  (``kernels.reset_launches()`` calls it). ``totals`` and ``add_totals``
+  read and add to its counts: a CUDA graph's replay adds what its capture
+  counted (``ops/trace.py``).
 
 ``device_trace`` records a ``torch.profiler`` trace (host operations, and
 the card's kernels and copies when there is a card) and writes it as a
@@ -144,6 +146,23 @@ def reset() -> None:
         else:
             for k in table:
                 table[k] = 0
+
+
+def totals() -> dict:
+    """Every count of the registry: ``COUNTS`` under (None, name), each
+    registered table's under (its name, key)."""
+    out = {(None, k): n for k, n in COUNTS.items()}
+    for name, table in TABLES.items():
+        out.update(((name, k), n) for k, n in table.items())
+    return out
+
+
+def add_totals(delta: dict, sign: int = 1) -> None:
+    """Add ``delta``, keyed as ``totals`` keys it, times ``sign`` to the
+    registry's counts."""
+    for (name, k), n in delta.items():
+        table = COUNTS if name is None else TABLES[name]
+        table[k] = table.get(k, 0) + sign * n
 
 
 def span_ms(name: str) -> float:
