@@ -15,8 +15,9 @@ its own code. The numbers, each the
 worst over the kept calls and frames:
 
 - ``input_diff``: values of the program's scene tables (valid rows,
-  materials, sky, camera defaults, mesh soup) unequal to the reference
-  builder's, and render settings unequal to the configuration's;
+  materials, sky, camera defaults, mesh soup or cluster sets) unequal to
+  the reference builder's, and render settings unequal to the
+  configuration's (``cluster_rows`` says how cluster sets compare);
 - ``sequence_errors``: kept calls whose tick, frame count or first frame
   index differ from the reference's replay of the shell loop;
 - ``pose_diff``: the largest gap between the program's last pose after a
@@ -48,8 +49,46 @@ NUMBERS = ("input_diff", "sequence_errors", "pose_diff", "rgb_mae",
 CONTROL_NUMBERS = ("rgb_mae", "ansi_flips", "history_mae", "exposure_rel")
 
 
+# The program's cluster tables of each set of a cluster mesh.
+CLUSTER_TABLES = {"mesh": "mesh_clusters", "mesh_fine": "mesh_clusters_fine",
+                  "mesh_lod": "mesh_clusters_lod",
+                  "mesh_shadow": "mesh_clusters_shadow"}
+
+
+def cluster_rows(a, e1, e2, n, mat) -> np.ndarray:
+    """A set's triangles as sorted float64 rows (a, e1, e2, n, mat): a form
+    that no packing order changes, compared exactly. Every column can
+    match bit for bit: the program packs a as given, e1 and e2 as float32
+    differences from it and n by the expression of ``_normals``."""
+    rows = np.concatenate([a, e1, e2, n, np.asarray(mat)[:, None]],
+                          axis=1).astype(np.float64)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def _normals(e1, e2):
+    n = np.cross(e1, e2)
+    return n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-20)
+
+
+def as_compared(inputs: dict) -> dict:
+    """The reference builder's inputs in the form ``program_inputs``
+    gives: each cluster set's vertices as ``cluster_rows``."""
+    out = dict(inputs)
+    for name in CLUSTER_TABLES:
+        if f"{name}.kc" not in inputs:
+            continue
+        a, b, c, mat = (out.pop(f"{name}.{k}") for k in ("a", "b", "c",
+                                                         "mat"))
+        e1, e2 = b - a, c - a
+        out[f"{name}.rows"] = cluster_rows(a, e1, e2, _normals(e1, e2), mat)
+    return out
+
+
 def program_inputs(scene) -> dict:
-    """The program's scene as the reference builder's keys (valid rows)."""
+    """The program's scene as the reference builder's keys (valid rows; a
+    cluster set's triangles as ``cluster_rows``, read from its packed
+    rows without the zero rows that pad its last cluster, beside its
+    triangles a cluster and its ``t_bias``)."""
     out = {}
     for t, cols in ref_scene.TABLES.items():
         tb = getattr(scene, t)
@@ -64,6 +103,18 @@ def program_inputs(scene) -> dict:
     if scene.mesh_soup is not None:
         for k in ("a", "b", "c", "mat"):
             out[f"mesh.{k}"] = getattr(scene.mesh_soup, k).cpu().numpy()
+    for name, table in CLUSTER_TABLES.items():
+        mc = getattr(scene, table)
+        if mc is None:
+            continue
+        rows = mc.tri_rows.cpu().numpy()
+        used = np.flatnonzero(rows.any(axis=1))
+        rows = rows[:used[-1] + 1 if used.size else 0]
+        out[f"{name}.rows"] = cluster_rows(rows[:, 0:3], rows[:, 3:6],
+                                           rows[:, 6:9], rows[:, 9:12],
+                                           rows[:, 12])
+        out[f"{name}.kc"] = np.asarray(mc.kc, np.int32)
+        out[f"{name}.t_bias"] = np.asarray(mc.t_bias, np.float64)
     return out
 
 
@@ -186,17 +237,23 @@ def scene_inputs(cell) -> dict:
         f"{__package__}.reference.scenes.{cell.config['scene']}").build()
 
 
-def input_diff(renderer, cell) -> int:
-    """``input_diff`` of the program's renderer (its scene and settings)."""
-    return (scene_diff(program_inputs(renderer.scene), scene_inputs(cell))
+def input_diff(renderer, cell, inputs=None) -> int:
+    """``input_diff`` of the program's renderer (its scene and settings);
+    ``inputs``: ``scene_inputs(cell)``, if already built."""
+    if inputs is None:
+        inputs = scene_inputs(cell)
+    return (scene_diff(program_inputs(renderer.scene), as_compared(inputs))
             + settings_diff(renderer.cfg, cell))
 
 
-def compare(shell, cell, device, control: bool = False) -> dict:
+def compare(shell, cell, device, control: bool = False,
+            inputs=None) -> dict:
     """The numbers of ``NUMBERS`` but ``input_diff`` for the shell's kept
     calls (with ``control``, of ``CONTROL_NUMBERS`` for the reference in
-    bfloat16 put in the program's place), plus ``frames_checked``."""
-    inputs = scene_inputs(cell)
+    bfloat16 put in the program's place), plus ``frames_checked``;
+    ``inputs``: ``scene_inputs(cell)``, if already built."""
+    if inputs is None:
+        inputs = scene_inputs(cell)
     cfg = dict(cell.config["render_config"])
     ref = Reference(cell, inputs, cfg, shell.schedule.keys_at, device)
     recs = sorted(shell.records + shell.sampled, key=lambda r: r.call)

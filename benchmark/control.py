@@ -1,7 +1,7 @@
 """Readings that the limits of ``checks/<workload>.json`` are set from.
 
     python3 -m benchmark.control --workload <name> --seconds <s> \
-        --seeds <n> [<n> ...]
+        --seeds <n> [<n> ...] [--override JSON]
 
 For each seed, in one process on the card: a short window of the cell at
 its own size and load, then the comparison of the kept calls, twice: the
@@ -9,6 +9,10 @@ program's numbers (the lower readings), and the numbers of the reference
 computed in bfloat16 put in the program's place (the control: float32 is
 what the configuration states, bfloat16 the nearest precision below). One
 JSON line a seed; the benchmark's own runs never run this.
+``--override`` ({"config": {...}, "traffic": {...}}) changes the cell's
+configuration or traffic for the readings: a scene that has no cell yet
+runs under a cell's traffic and limits, e.g. ``--workload museum.play
+--override '{"config": {"scene": "dragon", "fb_w": 240, "fb_h": 135}}'``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ def main(argv=None) -> int:
     ap.add_argument("--control-seeds", type=int, default=3,
                     help="run the control on this many of the seeds, the "
                          "first; the rest give the program's readings only")
+    ap.add_argument("--override", type=json.loads, default=None,
+                    help='JSON {"config": {...}, "traffic": {...}} merged '
+                         "into the cell")
     args = ap.parse_args(argv)
     from .run import ROOT, pin_to_one_core, run_cell, set_cache_dirs
     set_cache_dirs(ROOT)
@@ -37,6 +44,7 @@ def main(argv=None) -> int:
     for i, seed in enumerate(args.seeds):
         control = i < args.control_seeds
         result, _, errors = run_cell(args.workload, seed, args.seconds, 0,
+                                     overrides=args.override,
                                      control=control)
         print(json.dumps({
             "workload": args.workload, "seed": seed,

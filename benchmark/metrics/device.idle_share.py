@@ -4,7 +4,7 @@ with the profiler off."""
 
 LAYER = "device"
 UNIT = "%"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 
 
 def read(t):

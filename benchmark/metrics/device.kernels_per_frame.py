@@ -2,7 +2,7 @@
 
 LAYER = "device"
 UNIT = "kernels/frame"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 
 
 def read(t):

@@ -3,7 +3,7 @@ the profiled ticks."""
 
 LAYER = "device"
 UNIT = "ms/frame"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 
 
 def read(t):

@@ -4,7 +4,7 @@ wait), over the frames of the profiled ticks."""
 
 LAYER = "device"
 UNIT = "syncs/frame"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 
 
 def read(t):

@@ -8,7 +8,7 @@ from benchmark.devtrace import k1_bound_ms
 
 LAYER = "post kernel K1"
 UNIT = "%"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 _NAME = re.compile(r"(?:^|::|\s)post_persistent(?:\(|$)")
 
 

@@ -9,7 +9,7 @@ from benchmark.devtrace import k2_bound_ms
 
 LAYER = "trace kernel K2"
 UNIT = "%"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 _NAME = re.compile(r"(?:^|::|\s)trace_kernel(?:\(|$)")
 
 

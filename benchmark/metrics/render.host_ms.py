@@ -3,7 +3,7 @@ beneath), over the frames they issued in the window."""
 
 LAYER = "renderer"
 UNIT = "ms/frame"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 
 
 def read(t):

@@ -5,7 +5,7 @@ profiled ticks."""
 
 LAYER = "renderer"
 UNIT = "ms/frame"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 SPAN = "frame.post"
 
 

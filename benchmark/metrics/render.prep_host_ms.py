@@ -5,7 +5,7 @@ the frames of the profiled ticks."""
 
 LAYER = "renderer"
 UNIT = "ms/frame"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 SPAN = "render.prep"
 
 

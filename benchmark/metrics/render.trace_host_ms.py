@@ -4,7 +4,7 @@
 
 LAYER = "renderer"
 UNIT = "ms/frame"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 SPAN = "frame.trace"
 
 

@@ -4,7 +4,7 @@ batched path's u8 decode and the HUD text written into the framebuffer
 
 LAYER = "app shell"
 UNIT = "ms/tick"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 SPAN = "component.blit"
 
 

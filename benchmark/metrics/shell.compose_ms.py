@@ -4,7 +4,7 @@ and its planes made contiguous (the port's ``present.compose`` span in
 
 LAYER = "app shell"
 UNIT = "ms/tick"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 SPAN = "present.compose"
 
 

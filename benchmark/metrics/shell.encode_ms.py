@@ -4,7 +4,7 @@ over the profiled ticks."""
 
 LAYER = "app shell"
 UNIT = "ms/tick"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 SPAN = "present.encode"
 
 

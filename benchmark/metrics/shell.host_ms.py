@@ -4,7 +4,7 @@ compose, diff encode, the write)."""
 
 LAYER = "app shell"
 UNIT = "ms/tick"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 
 
 def read(t):

@@ -3,7 +3,7 @@
 
 LAYER = "app shell"
 UNIT = "ms/tick"
-MOVES = "tick_ms"
+MOVES = "lag_p95_ms"
 
 
 def read(t):

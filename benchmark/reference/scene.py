@@ -5,8 +5,10 @@ add it (rectangles, boxes, spheres, capped Y cylinders, lights, bulk mesh
 triangles), dedupes materials into a bank in insertion order (id 0 is a
 neutral grey default), and ``build`` returns the scene as flat numpy
 arrays (``SceneInputs``): the inputs the benchmark holds the program's
-scene to. ``Scene.from_inputs`` turns them into torch tables on a device,
-in a float dtype, for ``trace.py``.
+scene to. A mesh of at least ``lod.CLUSTER_MIN_TRIS`` triangles is a
+cluster mesh: beside it ``build`` derives its proxy sets by the program's
+published rules (``lod.py``). ``Scene.from_inputs`` turns the inputs into
+torch tables on a device, in a float dtype, for ``trace.py``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from . import lod
 
 PROC_SOLID = 0
 PROC_CHECKER = 1
@@ -92,7 +96,10 @@ class Material:
 # Key: {"<table>.<column>": array} of the valid rows, the material bank
 # ("materials.<field>"), the sky and ambient vectors, "defaults" (px, py,
 # pz, yaw, pitch, fov) and the mesh soup ("mesh.a", "mesh.b", "mesh.c",
-# "mesh.mat"), when the scene has one.
+# "mesh.mat"), when the scene has one. A cluster mesh adds "mesh.kc" (its
+# triangles a cluster) and "mesh.t_bias", and each of its proxy sets
+# ("mesh_fine", "mesh_lod", "mesh_shadow", as ``lod.proxy_sets`` builds
+# them) the same six keys under its own name.
 SceneInputs = Dict[str, np.ndarray]
 
 
@@ -103,6 +110,7 @@ class SceneBuilder:
         self._ids = {Material(): 0}
         self._rows = {t: [] for t in TABLES}
         self._mesh = []
+        self._cluster_budgets = None
         self.ambient_color = (1.0, 1.0, 1.0)
         self.ambient_intensity = 0.075
         self.bg_top = (0.6, 0.8, 1.0)
@@ -144,6 +152,12 @@ class SceneBuilder:
     def mesh(self, tris, m):
         self._mesh.append((np.asarray(tris, np.float32), self.mat(m)))
 
+    def force_clusters(self, budgets: dict):
+        """Make the mesh a cluster mesh whatever its size, with the proxy
+        sets of ``budgets`` ({"fine", "lod", "shadow"} triangles; empty:
+        none), as the program's small test scenes force it."""
+        self._cluster_budgets = dict(budgets)
+
     def camera(self, pos, yaw=0.0, pitch=0.0, fov=60.0):
         self.defaults = (*(float(v) for v in pos), float(yaw), float(pitch),
                          float(fov))
@@ -165,10 +179,22 @@ class SceneBuilder:
         out["defaults"] = np.asarray(self.defaults, np.float64)
         if self._mesh:
             tris = np.concatenate([t for t, _ in self._mesh])
-            out["mesh.a"], out["mesh.b"], out["mesh.c"] = (
-                np.ascontiguousarray(tris[:, i]) for i in range(3))
-            out["mesh.mat"] = np.concatenate(
+            mats = np.concatenate(
                 [np.full(t.shape[0], m, np.int32) for t, m in self._mesh])
+            sets = {"mesh": (tris, mats, 0.0)}
+            forced = self._cluster_budgets
+            clusters = (forced is not None
+                        or tris.shape[0] >= lod.CLUSTER_MIN_TRIS)
+            if clusters and forced != {}:
+                sets.update(lod.proxy_sets(tris, mats, forced))
+            for name, (t, m, bias) in sets.items():
+                out[f"{name}.a"], out[f"{name}.b"], out[f"{name}.c"] = (
+                    np.ascontiguousarray(t[:, i]) for i in range(3))
+                out[f"{name}.mat"] = m
+                if clusters:
+                    out[f"{name}.kc"] = np.asarray(
+                        lod.KC if name == "mesh" else lod.PROXY_KC, np.int32)
+                    out[f"{name}.t_bias"] = np.asarray(bias, np.float64)
         return out
 
 
@@ -269,11 +295,17 @@ def _morton(n01: torch.Tensor) -> torch.Tensor:
         | spread(n01[:, 2])
 
 
+GROUP = 64   # triangles a spatial group of a mesh object
+
+
 class Scene(SimpleNamespace):
     """Torch tables of a scene: ``spheres``, ``boxes``, ... and ``lights``
     (namespaces of columns), ``materials``, the sky and ambient vectors,
     ``defaults`` and, for a scene with a mesh, ``mesh`` (a, e1, e2, n, mat
-    in Morton order of the triangles' box centres, ties in input order)."""
+    in Morton order of the triangles' box centres, ties in input order,
+    ``kc`` and ``t_bias``; see ``_mesh_table``), and for a cluster mesh
+    ``mesh_fine``, ``mesh_lod`` and ``mesh_shadow`` alike where it has
+    them (else None)."""
 
     @staticmethod
     def from_inputs(d: SceneInputs, device, dtype=torch.float32) -> "Scene":
@@ -289,45 +321,73 @@ class Scene(SimpleNamespace):
         for v in VECTORS:
             setattr(s, v, t(d[v]))
         s.any_transparent = bool((d["materials.transparency"] > 0).any())
-        s.mesh = None
-        if "mesh.a" in d:
-            # Derived in float32 from the input vertices, then cast.
-            a, b, c = (torch.from_numpy(d[f"mesh.{k}"]).to(device)
-                       for k in "abc")
-            lo3 = torch.minimum(torch.minimum(a, b), c)
-            hi3 = torch.maximum(torch.maximum(a, b), c)
-            cent = (lo3 + hi3) * 0.5
-            lo = cent.amin(0)
-            ext = torch.clamp(cent.amax(0) - lo, min=1e-12)
-            order = torch.sort(_morton((cent - lo) / ext), stable=True).indices
-            a, b, c = a[order], b[order], c[order]
-            e1, e2 = b - a, c - a
-            n = _cross(e1, e2)
-            n = n / torch.sqrt(torch.clamp(_dot(n, n), min=1e-20))[:, None]
-            s.mesh = SimpleNamespace(
-                a=a.to(dtype), e1=e1.to(dtype), e2=e2.to(dtype),
-                n=n.to(dtype),
-                mat=torch.from_numpy(d["mesh.mat"]).to(device)[order])
-            s.mesh.groups = _mesh_groups(s.mesh, d["mesh.mat"], order,
-                                         lo3[order], hi3[order])
+        for name in lod.SETS:
+            setattr(s, name, _mesh_table(d, name, device, dtype)
+                    if f"{name}.a" in d else None)
         return s
 
 
+def _mesh_table(d: SceneInputs, name: str, device, dtype):
+    """The triangles of the set ``name`` in Morton order, with ``kc`` (its
+    triangles a cluster; None for a mesh that is not a cluster mesh),
+    ``t_bias`` (where its rays start at the least) and its ``objects``
+    (``_mesh_groups``)."""
+    # Derived in float32 from the input vertices, then cast.
+    a, b, c = (torch.from_numpy(d[f"{name}.{k}"]).to(device) for k in "abc")
+    lo3 = torch.minimum(torch.minimum(a, b), c)
+    hi3 = torch.maximum(torch.maximum(a, b), c)
+    cent = (lo3 + hi3) * 0.5
+    lo = cent.amin(0)
+    ext = torch.clamp(cent.amax(0) - lo, min=1e-12)
+    order = torch.sort(_morton((cent - lo) / ext), stable=True).indices
+    a, b, c = a[order], b[order], c[order]
+    e1, e2 = b - a, c - a
+    n = _cross(e1, e2)
+    n = n / torch.sqrt(torch.clamp(_dot(n, n), min=1e-20))[:, None]
+    kc = d.get(f"{name}.kc")
+    m = SimpleNamespace(
+        a=a.to(dtype), e1=e1.to(dtype), e2=e2.to(dtype), n=n.to(dtype),
+        mat=torch.from_numpy(d[f"{name}.mat"]).to(device)[order],
+        kc=None if kc is None else int(kc),
+        t_bias=float(d.get(f"{name}.t_bias", 0.0)))
+    m.objects = _mesh_groups(m, d[f"{name}.mat"], order, lo3[order],
+                             hi3[order])
+    return m
+
+
+def _box(lo, hi):
+    """A box padded by 1e-3 and a thousandth of its extent, kept in
+    float32 whatever the dtype, so that a skip never drops a hit."""
+    pad = 1e-3 + 1e-3 * (hi - lo).amax(-1, keepdim=True)
+    return lo - pad, hi + pad
+
+
 def _mesh_groups(mesh, mat, order, lo3, hi3):
-    """One group a mesh object (a run of equal material in the input
-    order): its triangles' positions in ``mesh`` (ascending), their
-    columns, and their bounding box padded by 1e-3 and a thousandth of
-    its extent, kept in float32 whatever ``dtype``, so that a skip never
-    drops a hit."""
+    """One object a run of equal material in the input order, with its
+    padded box, cut into spatial groups of ``GROUP`` consecutive
+    triangles of ``mesh``'s order, each with its own padded box: ``idx``
+    (G, GROUP) positions in ``mesh`` (ascending; padding slots hold 0),
+    their ``a``, ``e1``, ``e2`` (G, GROUP, 3; zero in padding slots, so
+    never hit) and ``lo``, ``hi`` (G, 3)."""
     mat = np.asarray(mat)
-    cuts = [0] + [i for i in range(1, mat.shape[0])
-                  if mat[i] != mat[i - 1]] + [mat.shape[0]]
-    groups = []
+    cuts = [0, *(np.flatnonzero(mat[1:] != mat[:-1]) + 1).tolist(),
+            mat.shape[0]]
+    objects = []
     for s, e in zip(cuts, cuts[1:]):
         idx = torch.nonzero((order >= s) & (order < e))[:, 0]
-        lo, hi = lo3[idx].amin(0), hi3[idx].amax(0)
-        pad = 1e-3 + 1e-3 * (hi - lo).amax()
-        groups.append(SimpleNamespace(
-            idx=idx, a=mesh.a[idx], e1=mesh.e1[idx], e2=mesh.e2[idx],
-            lo=lo - pad, hi=hi + pad))
-    return groups
+        n = idx.shape[0]
+        G = -(-n // GROUP)
+        slot = torch.arange(G * GROUP, device=idx.device)
+        real = (slot < n).reshape(G, GROUP)
+        gidx = torch.where(slot < n, idx[slot.clamp(max=n - 1)], 0) \
+            .reshape(G, GROUP)
+        cols = {k: torch.where(real[..., None], getattr(mesh, k)[gidx], 0.0)
+                for k in ("a", "e1", "e2")}
+        far = torch.tensor(3.0e38, device=idx.device)
+        glo, ghi = _box(torch.where(real[..., None], lo3[gidx], far).amin(1),
+                        torch.where(real[..., None], hi3[gidx], -far)
+                        .amax(1))
+        olo, ohi = _box(lo3[idx].amin(0), hi3[idx].amax(0))
+        objects.append(SimpleNamespace(lo=olo, hi=ohi, groups=SimpleNamespace(
+            idx=gidx, lo=glo, hi=ghi, **cols)))
+    return objects

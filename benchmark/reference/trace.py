@@ -3,8 +3,9 @@
 Each pixel carries a ray, a throughput, mirror and diffuse depth counters,
 a path stack (for the two children of a refraction) and a SplitMix64
 state. One round intersects every live ray with every primitive and every
-mesh triangle (no acceleration structure: a mesh object is skipped only
-for rays that miss its padded bounding box), adds sky or emission, pushes a
+mesh triangle (no acceleration structure: a mesh object, and a spatial
+group of its triangles, is skipped only for rays that miss its padded
+bounding box), adds sky or emission, pushes a
 transparent hit's Fresnel-weighted reflection and refraction, shades a
 diffuse hit (ambient, and Oren–Nayar direct light from each light with
 inverse-square falloff and coloured transmittance through up to
@@ -12,12 +13,21 @@ inverse-square falloff and coloured transmittance through up to
 bounce, else pops the stack. Rounds repeat until no ray is live. The
 first hit of the primary ray fills the G-buffer (albedo, normal, depth).
 
+A cluster mesh is met through the set that the program routes each
+population of rays to (``mesh_set``): round 0 the fine proxy set, later
+rounds the LOD set, shadow rays the shadow set, each from its
+``t_bias``, by default.
+
 Nearest-hit rules: per table the first row among equal nearest t; the
 tables merge in the order spheres, boxes, rects, cylinders, disks,
 planes, triangles, a later one winning only when strictly nearer; mesh
 triangles count only strictly below the primitives' t + 1e-3 and take the
-first of equal nearest t in the scene's triangle order. Dot products sum
-x + y + z in that order.
+first of the least key in the set's triangle order. A mesh's key is its
+t; a cluster mesh's, as the JAX package's cluster sweep defines it, is t
+with its low log2(4 kc) mantissa bits cleared (kc: 256 triangles a
+cluster for the full set, 512 for a proxy set), and its hit test allows
+each barycentric down to -1e-3; the winner keeps its exact t. Dot
+products sum x + y + z in that order.
 """
 
 from __future__ import annotations
@@ -32,7 +42,13 @@ from .scene import PROC_CELL_TINT, PROC_CHECKER
 
 INF = 3.0e38
 EPS = 1e-4
-MESH_CHUNK = 2048   # rays a brute-force mesh pass holds at once
+# A cluster mesh's barycentric slack (the JAX package's cluster sweep,
+# ops/mesh_clusters.py: a hit where each barycentric is at least -1e-3).
+CLUSTER_SLACK = 1e-3
+# Ray-box tests, and ray-triangle tests, that one pass holds at once.
+SLAB_CELLS = 1 << 22
+PAIR_CELLS = 1 << 21
+P_MAX = 1 << 62   # above every triangle position
 
 
 def dot3(a, b):
@@ -241,18 +257,17 @@ def planes(tb, o, d, tmin, tmax):
                            v=z, mat=tb.mat[idx], hit=hit)
 
 
-def _moller_trumbore(tb, o, d):
-    """Double-sided Möller–Trumbore of (P,) rays against (N,) triangles:
-    (det, u, v, t) each (P, N)."""
-    dd = d[:, None, :].expand(-1, tb.a.shape[0], -1)
-    e1, e2 = tb.e1[None], tb.e2[None]
-    h = cross3(dd, e2)
+def _moller_trumbore(a, e1, e2, o, d):
+    """Double-sided Möller–Trumbore of rays ``o``, ``d`` (P, 1, 3) against
+    triangles ``a``, ``e1``, ``e2`` (P or 1, N, 3): (det, u, v, t) each
+    (P, N)."""
+    h = cross3(d, e2)
     det = dot3(e1, h)
     inv_det = safe_div(torch.ones_like(det), det)
-    s = o[:, None, :] - tb.a[None]
+    s = o - a
     u = dot3(s, h) * inv_det
-    q = cross3(s, e1.expand_as(s))
-    return det, u, dot3(dd, q) * inv_det, dot3(e2, q) * inv_det
+    q = cross3(s, e1)
+    return det, u, dot3(d, q) * inv_det, dot3(e2, q) * inv_det
 
 
 def _in_triangle(det, u, v):
@@ -260,8 +275,15 @@ def _in_triangle(det, u, v):
             & (u + v <= 1.0))
 
 
+def _in_cluster_triangle(det, u, v):
+    """A cluster mesh's hit test: each barycentric at least -1e-3."""
+    return ((det.abs() >= 1e-8) & (u >= -CLUSTER_SLACK)
+            & (v >= -CLUSTER_SLACK) & ((1.0 - u) - v >= -CLUSTER_SLACK))
+
+
 def triangles(tb, o, d, tmin, tmax):
-    det, u, v, t = _moller_trumbore(tb, o, d)
+    det, u, v, t = _moller_trumbore(tb.a[None], tb.e1[None], tb.e2[None],
+                                    o[:, None], d[:, None])
     ok = _in_triangle(det, u, v) & (t >= tmin) & (t <= tmax)
     best, idx, hit = first_min(torch.where(ok, t, INF))
     return SimpleNamespace(t=best, n=flip_against(tb.n[idx], d),
@@ -270,23 +292,36 @@ def triangles(tb, o, d, tmin, tmax):
 
 
 def _slab(lo, hi, o, d, tmin, tclip):
-    """Rays whose segment [tmin, tclip] may meet the box [lo, hi]."""
+    """Rays whose segment [tmin, tclip] may meet the box [lo, hi] (the
+    last dimension holds x, y, z; the others broadcast)."""
     t1, t2 = (lo - o) / d, (hi - o) / d
     flat = d == 0.0
     inside = (o >= lo) & (o <= hi)
     t1 = torch.where(flat, -INF, t1)
     t2 = torch.where(flat, INF, t2)
-    near = torch.minimum(t1, t2).amax(1)
-    far = torch.maximum(t1, t2).amin(1)
+    near = torch.minimum(t1, t2).amax(-1)
+    far = torch.maximum(t1, t2).amin(-1)
     return ((near <= far) & (far >= tmin) & (near <= tclip)
-            & ~(flat & ~inside).any(1))
+            & ~(flat & ~inside).any(-1))
+
+
+def _key(t, kc):
+    """The nearest-hit key of float32 ``t``: for a cluster set of ``kc``
+    triangles a cluster, t with its low log2(4 kc) mantissa bits cleared;
+    t itself for a mesh that is not a cluster mesh."""
+    if kc is None:
+        return t
+    return (t.view(torch.int32) & ~(4 * kc - 1)).view(torch.float32)
 
 
 def mesh(tb, o, d, tmin, tclip):
-    """The nearest mesh triangle with tmin <= t < tclip, the first of
-    equal nearest t in the triangle order; the normal faces the ray. Each
-    mesh object is tested only against the rays that meet its padded
-    bounding box, in chunks of rays: a ray that misses the box misses its
+    """The mesh triangle of least key (``_key``) with tmin <= t < tclip,
+    the first of equal keys in the triangle order, with its own t; the
+    normal faces the ray. A cluster mesh's triangles are met by
+    ``_in_cluster_triangle``, any other's by ``_in_triangle``. A mesh
+    object is tested only against the rays that meet its padded
+    box, and each of its spatial groups only against those of them that
+    meet the group's padded box: a ray that misses a box misses its
     triangles, so the answer is that of testing every triangle."""
     P = o.shape[0]
     # The dtype of the Moller-Trumbore terms: safe_div's bounds are
@@ -296,22 +331,44 @@ def mesh(tb, o, d, tmin, tclip):
                                                  torch.get_default_dtype()))
     best = torch.full((P,), INF, dtype=dt, device=o.device)
     first = torch.full((P,), -1, dtype=torch.int64, device=o.device)
+    bkey = best.clone()
     bu, bv = torch.zeros_like(best), torch.zeros_like(best)
-    for g in tb.groups:
-        rays = torch.nonzero(_slab(g.lo, g.hi, o, d, tmin, tclip))[:, 0]
-        for s in range(0, rays.shape[0], MESH_CHUNK):
-            r = rays[s:s + MESH_CHUNK]
-            det, u, v, t = _moller_trumbore(g, o[r], d[r])
-            ok = (_in_triangle(det, u, v) & (t >= tmin[r, None])
-                  & (t < tclip[r, None]))
-            gt, gi, ghit = first_min(torch.where(ok, t, INF))
-            idx = g.idx[gi]
-            take = ghit & ((gt < best[r]) | ((gt == best[r])
-                                             & (idx < first[r])))
-            best[r] = torch.where(take, gt, best[r])
-            first[r] = torch.where(take, idx, first[r])
-            bu[r] = torch.where(take, pick(u, gi), bu[r])
-            bv[r] = torch.where(take, pick(v, gi), bv[r])
+    inside = _in_triangle if tb.kc is None else _in_cluster_triangle
+    for ob in tb.objects:
+        g = ob.groups
+        rays = torch.nonzero(_slab(ob.lo, ob.hi, o, d, tmin, tclip))[:, 0]
+        step = max(1, SLAB_CELLS // g.lo.shape[0])
+        for s in range(0, rays.shape[0], step):
+            r = rays[s:s + step]
+            pr, pg = torch.nonzero(_slab(
+                g.lo[None], g.hi[None], o[r, None], d[r, None],
+                tmin[r, None], tclip[r, None]), as_tuple=True)
+            chunk = max(1, PAIR_CELLS // g.idx.shape[1])
+            for c in range(0, pr.shape[0], chunk):
+                ray, grp = r[pr[c:c + chunk]], pg[c:c + chunk]
+                det, u, v, t = _moller_trumbore(
+                    g.a[grp], g.e1[grp], g.e2[grp], o[ray, None],
+                    d[ray, None])
+                ok = (inside(det, u, v) & (t >= tmin[ray, None])
+                      & (t < tclip[ray, None]))
+                t = t.to(dt)   # a key is taken of float32 t
+                gk, gi, ghit = first_min(torch.where(ok, _key(t, tb.kc),
+                                                     INF))
+                gt = pick(t, gi)
+                idx = g.idx[grp, gi]
+                # Of each ray's pairs, the least key, then the first.
+                near = best.new_full((P,), INF).scatter_reduce(
+                    0, ray, gk, "amin")
+                cand = ghit & (gk == near[ray])
+                low = first.new_full((P,), P_MAX).scatter_reduce(
+                    0, ray, torch.where(cand, idx, P_MAX), "amin")
+                w = torch.nonzero(cand & (idx == low[ray]))[:, 0]
+                rw = ray[w]
+                w = w[(gk[w] < bkey[rw]) | ((gk[w] == bkey[rw])
+                                           & (idx[w] < first[rw]))]
+                rw = ray[w]
+                bkey[rw], best[rw], first[rw] = gk[w], gt[w], idx[w]
+                bu[rw], bv[rw] = pick(u[w], gi[w]), pick(v[w], gi[w])
     hit = first >= 0
     k = first.clamp(min=0)
     nrm = torch.where(hit[:, None], tb.n[k], 0.0)
@@ -326,16 +383,40 @@ INTERSECTORS = (("spheres", spheres), ("boxes", boxes), ("rects", rects),
                 ("planes", planes), ("triangles", triangles))
 
 
-def intersect(scene, o, d, tmin, tmax):
+def mesh_set(scene, cfg, population: str):
+    """The mesh set that rays of ``population`` meet: "primary" (round
+    0), "bounce" (every later round) or "shadow". As the program routes
+    them: with ``secondary_mesh_lod`` shadow rays meet the shadow proxy
+    set, else the LOD set, and later rounds the LOD set; with
+    ``primary_mesh_lod`` round 0 meets the fine set; each only where the
+    scene has it, the full mesh otherwise (None: no mesh)."""
+    lod = scene.mesh_lod is not None and cfg["secondary_mesh_lod"]
+    if population == "shadow" and lod and scene.mesh_shadow is not None:
+        return scene.mesh_shadow
+    if population != "primary" and lod:
+        return scene.mesh_lod
+    if population == "primary" and scene.mesh_fine is not None \
+            and cfg["primary_mesh_lod"]:
+        return scene.mesh_fine
+    return scene.mesh
+
+
+def intersect(scene, o, d, tmin, tmax, mesh_tb):
+    """The nearest hit over the primitive tables and the mesh set
+    ``mesh_tb`` (``mesh_set``), which the rays start at its ``t_bias``
+    at the least."""
     h = miss(o)
     lo, hi = col(tmin, o), col(tmax, o)
     for name, fn in INTERSECTORS:
         tb = getattr(scene, name)
         if tb.mat.shape[0]:
             h = merge(h, fn(tb, o, d, lo, hi))
-    if scene.mesh is not None:
+    if mesh_tb is not None:
         tclip = torch.minimum(hi[:, 0], h.t + 1e-3)
-        h = merge(h, mesh(scene.mesh, o, d, lo[:, 0].contiguous(), tclip))
+        start = lo[:, 0].contiguous()
+        if mesh_tb.t_bias > 0.0:
+            start = torch.clamp(start, min=mesh_tb.t_bias)
+        h = merge(h, mesh(mesh_tb, o, d, start, tclip))
     return h
 
 
@@ -418,12 +499,13 @@ def transmittance(scene, so, sd, max_dist, need, cfg):
     done = torch.zeros_like(need)
     tmin = torch.full_like(max_dist, EPS)
     rays = torch.zeros(need.shape, dtype=torch.int32, device=so.device)
+    mesh_tb = mesh_set(scene, cfg, "shadow")
     for _ in range(cfg["max_refractions"]):
         live = need & ~done
         if not bool(live.any()):
             break
         rays = rays + live.to(torch.int32)
-        h = intersect(scene, so, sd, tmin, max_dist)
+        h = intersect(scene, so, sd, tmin, max_dist, mesh_tb)
         m = gather(scene.materials, h.mat)
         opaque = h.hit & (m.transparency <= 0.0) & ~done
         trans = torch.where(opaque[:, None], 0.0, trans)
@@ -465,12 +547,13 @@ def trace_pixels(scene, o0, d0, rng0, cfg):
     amb = scene.ambient_color * scene.ambient_intensity
     lanes = torch.arange(P, device=dev)
 
-    for _ in range(cfg["max_trace_rounds"]):
+    for rnd in range(cfg["max_trace_rounds"]):
         if not bool(active.any()):
             break
         lane_rays = lane_rays + active.to(torch.int32)
         h = intersect(scene, torch.where(active[:, None], o, 2.9e30), d,
-                      1e-3, INF)
+                      1e-3, INF,
+                      mesh_set(scene, cfg, "bounce" if rnd else "primary"))
         m = gather(scene.materials, h.mat)
         p = o + h.t[:, None] * d
         alb = albedo_at(m, p, p + d * 1e-3)

@@ -73,33 +73,38 @@ def _percentile(values, q):
     return float(np.percentile(np.asarray(values, np.float64), q))
 
 
-def end_to_end(shell, setup_s: float) -> dict:
-    """``tick_ms``, ``tick_p95_ms``, ``lag_p95_ms`` over the window."""
+def end_to_end(shell, setup_s: float, names) -> dict:
+    """Of ``tick_ms``, ``tick_p95_ms``, ``lag_p95_ms`` over the window and
+    ``setup_s``, those in ``names`` (the cell's end-to-end metrics)."""
     first, last = shell.window_ticks[0], shell.window_ticks[-1]
     spans = [shell.times[i] for i in shell.window_ticks]
     wall = shell.times[last][1] - shell.times[first][0]
     lags = [shell.times[tick][1] - shell.times[shell.issue_tick[fid]][0]
             for fid, tick in shell.shown]
-    return {
+    metrics = {
         "tick_ms": {"value": wall * 1e3 / len(spans), "unit": "ms"},
         "tick_p95_ms": {"value": _percentile(
             [(e - s) * 1e3 for s, e in spans], 95), "unit": "ms"},
         "lag_p95_ms": {"value": _percentile(lags, 95) * 1e3, "unit": "ms"},
         "setup_s": {"value": setup_s, "unit": "s"},
     }
+    return {k: v for k, v in metrics.items() if k in names}
 
 
 def window_spans(shell, waits) -> SimpleNamespace:
-    """Host time in the window: ticks, render calls, copy waits."""
+    """Host time in the window: its wall, ticks, render calls, copy
+    waits."""
     ticks = set(shell.window_ticks)
+    first, last = shell.window_ticks[0], shell.window_ticks[-1]
+    wall_ms = (shell.times[last][1] - shell.times[first][0]) * 1e3
     tick_ms = [(e - s) * 1e3 for i, (s, e) in enumerate(shell.times)
                if i in ticks]
     calls = [(t1 - t0) * 1e3 for tick, t0, t1, _ in shell.calls
              if tick in ticks]
     frames = sum(n for tick, _, _, n in shell.calls if tick in ticks)
     wait_ms = sum(w for tick, w in waits if tick in ticks) * 1e3
-    return SimpleNamespace(tick_ms=tick_ms, render_ms=calls, frames=frames,
-                           wait_ms=wait_ms)
+    return SimpleNamespace(wall_ms=wall_ms, tick_ms=tick_ms, render_ms=calls,
+                           frames=frames, wait_ms=wait_ms)
 
 
 def profile_ticks(shell, cell, device) -> SimpleNamespace:
@@ -259,7 +264,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: int,
                     metrics[m["name"]] = {"value": value, "unit": m["unit"]}
             result["metrics"] = metrics
         else:
-            result["metrics"] = end_to_end(shell, setup_s)
+            result["metrics"] = end_to_end(
+                shell, setup_s, {m["name"] for m in cell.end_to_end})
     finally:
         if trace:
             raytrace_entity.HostCopy.numpy = real_numpy
@@ -274,22 +280,28 @@ def run_cell(workload: str, seed: int, seconds: float, trace: int,
 
     # The comparison: the program's state is let go first, but for what
     # the kept calls hold.
-    numbers = {"input_diff": check.input_diff(shell.rt.renderer, cell)}
+    t_check = time.perf_counter()
+    inputs = check.scene_inputs(cell)
+    numbers = {"input_diff": check.input_diff(shell.rt.renderer, cell,
+                                              inputs)}
     shell.close()
     shell.release()
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    numbers.update(check.compare(shell, cell, dev))
+    numbers.update(check.compare(shell, cell, dev, inputs=inputs))
+    t_end = time.perf_counter()
     print(f"timing: set-up {setup_s:.1f} s, window {seconds:.1f} s, "
-          f"reference {time.perf_counter() - t_ref:.1f} s for "
-          f"{numbers['frames_checked']} frames", file=sys.stderr)
+          f"reference {t_end - t_ref:.1f} s for "
+          f"{numbers['frames_checked']} frames, check {t_end - t_check:.1f}"
+          " s", file=sys.stderr)
     lines = [(k, numbers[k], cell.limits[k]) for k in check.NUMBERS]
     result["correct"] = (all(v <= lim for _, v, lim in lines)
                          and not shell.errors and shell.failed == 0)
     if control:
-        result["control"] = check.compare(shell, cell, dev, control=True)
+        result["control"] = check.compare(shell, cell, dev, control=True,
+                                          inputs=inputs)
     result["check"] = {k: {"value": v, "limit": lim} for k, v, lim in lines}
     return result, lines, shell.errors
 

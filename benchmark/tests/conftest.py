@@ -12,6 +12,8 @@ TINY = {"config": {"fb_w": 24, "fb_h": 8, "warmup_ticks": 2,
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA card; skips without one")
+    config.addinivalue_line(
+        "markers", "slow: builds the 598,520-triangle dragon twice")
 
 
 @pytest.fixture

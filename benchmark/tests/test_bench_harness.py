@@ -121,15 +121,52 @@ def test_new_files_are_found_by_name_and_runs_stay_inside(tmp_path):
     assert result["metrics"]["shell.ticks_per_s"]["value"] > 0
 
 
+def test_a_cluster_mesh_cell_needs_only_files_and_entries(tmp_path):
+    """The dragon (a cluster mesh with fine, LOD and shadow proxy sets)
+    becomes a cell with a configuration, a limits file and entries; the
+    run's check holds the program's cluster tables to the reference's
+    and replays its calls exactly. (At 16x12 pixels one cell is 1% of a
+    frame, so its frames are held to the limits at the cell's own size,
+    on the card: test_bench_reference.py.)"""
+    co = _checkout(tmp_path)
+    before = _digests(co)
+    bench = co / "benchmark"
+    cfg = json.loads((bench / "configs" / "museum_standin_160x90.json")
+                     .read_text())
+    cfg.update(scene="dragon", fb_w=16, fb_h=6, warmup_ticks=2)
+    (bench / "configs" / "dragon_16x6.json").write_text(json.dumps(cfg))
+    shutil.copy(bench / "checks" / "museum.play.json",
+                bench / "checks" / "dragon_16x6.play.json")
+    spec = json.loads((co / "BENCHMARK.json").read_text())
+    spec["configs"].append(dict(spec["configs"][1], name="dragon_16x6",
+                                file="benchmark/configs/dragon_16x6.json"))
+    spec["workloads"].append({"name": "dragon_16x6.play",
+                              "config": "dragon_16x6", "traffic": "play",
+                              "chips": 1, "why": "a test cell"})
+    (co / "BENCHMARK.json").write_text(json.dumps(spec))
+    after = _digests(co)
+    assert [p for p in before if before[p] != after[p]] == [
+        co / "BENCHMARK.json"]
+
+    result, outside = _run(co, tmp_path, "dragon_16x6.play", 0, {
+        "traffic": {"follow_calls": 1, "check_calls": 1}})
+    assert not outside, outside
+    for k in ("input_diff", "sequence_errors", "pose_diff"):
+        assert result["check"][k]["value"] == 0, result["check"]
+    assert result["failed"] == 0 and result["attempted"] > 0
+
+
 @pytest.mark.parametrize("workload", ["cornell.play", "cornell.batch8"])
 def test_end_to_end_line_keeps_to_the_contract(tmp_path, workload):
     from benchmark.tests.conftest import TINY
     co = _checkout(tmp_path)
+    from benchmark import spec
     result, outside = _run(co, tmp_path, workload, 0, TINY)
     assert not outside, outside
     assert list(result) == CONTRACT_KEYS + ["check"]
-    assert set(result["metrics"]) == {"tick_ms", "tick_p95_ms",
-                                      "lag_p95_ms", "setup_s"}
+    cell = spec.load_cell(ROOT, workload)
+    assert set(result["metrics"]) == {m["name"] for m in cell.end_to_end}
+    assert {"setup_s", "lag_p95_ms"} <= set(result["metrics"])
     assert all(m["value"] > 0 for m in result["metrics"].values())
     assert result["correct"] and result["failed"] == 0
     assert result["attempted"] > 0
@@ -201,5 +238,23 @@ def test_benchmark_json_keeps_to_the_contract():
         assert (reader.LAYER, reader.UNIT, reader.MOVES) == (
             m["layer"], m["unit"], m["moves"])
         assert m["moves"] in e2e and set(m["workloads"]) <= set(cells)
+        reports = set(e2e[m["moves"]].get("workloads", cells))
+        assert set(m["workloads"]) <= reports, m["name"]
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
     assert len(json.dumps(b)) <= 64 * 1024
+
+
+def test_the_tick_readers_take_the_windows_wall_and_tail():
+    """``shell.tick_ms`` and ``shell.tick_p95_ms`` read what ``tick_ms``
+    and ``tick_p95_ms`` take end to end, from the traced run's window."""
+    from types import SimpleNamespace
+
+    from benchmark import spec
+    ticks = [4.0] * 19 + [24.0]
+    s = SimpleNamespace(wall_ms=110.0, tick_ms=ticks)
+    mean = spec.metric_reader("shell.tick_ms")
+    p95 = spec.metric_reader("shell.tick_p95_ms")
+    assert mean.read(SimpleNamespace(spans=s)) == 5.5
+    assert p95.read(SimpleNamespace(spans=s)) == pytest.approx(5.0)
+    empty = SimpleNamespace(spans=SimpleNamespace(wall_ms=0.0, tick_ms=[]))
+    assert mean.read(empty) is None and p95.read(empty) is None

@@ -25,8 +25,8 @@ REFERENCE_ONLY = r"""
 import json, sys
 import torch
 from benchmark.reference import camera, frame, post, scene, terminal, trace
-from benchmark.reference.scenes import cornell, museum
-for builder in (cornell, museum):
+from benchmark.reference.scenes import cornell, fine_forced, museum
+for builder in (cornell, museum, fine_forced):
     s = scene.Scene.from_inputs(builder.build(), "cpu")
     poses = camera.call_poses(lambda t: {"w"}, 1, 1 / 30, s.defaults, 1)
     frame.render_frames(s, {
@@ -39,7 +39,8 @@ for builder in (cornell, museum):
         "tone_exposure": 1.0, "tone_gamma": 2.2, "auto_exposure": True,
         "ae_key": 0.18, "ae_speed": 0.2, "ae_min": 0.1, "ae_max": 1.5,
         "tone_saturation": 2.0, "tone_vibrance": 0.0,
-        "max_trace_rounds": 24, "path_stack_size": 16},
+        "max_trace_rounds": 24, "path_stack_size": 16,
+        "primary_mesh_lod": True, "secondary_mesh_lod": True},
         8, 4, poses[0][1], s.defaults[5],
         frame.init_state(8, 8, "cpu", torch.float32), 1)
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))

@@ -2,7 +2,10 @@
 
 The reference (benchmark/reference) is written out on its own; these
 tests hold it to the port's plain PyTorch path on the CPU, frame by frame
-from a fresh state, for both configurations' scenes and inputs."""
+from a fresh state, for both configurations' scenes and inputs, and for a
+small cluster-mesh scene with all three proxy sets (``fine_forced``); the
+dragon's inputs equal the port's, and on the card its frames hold the
+museum's limits."""
 
 import dataclasses
 
@@ -12,9 +15,11 @@ import torch
 
 from benchmark import check
 from benchmark.reference import camera, frame, scene as ref_scene
-from benchmark.reference.scenes import cornell, museum
+from benchmark.reference.scenes import cornell, dragon, fine_forced, museum
 
 FB_W, FB_H = 24, 8
+# The dragon, which has no cell yet, under museum.play's traffic and limits.
+DRAGON = {"config": {"scene": "dragon", "fb_w": 240, "fb_h": 135}}
 
 
 def _cfg():
@@ -22,27 +27,61 @@ def _cfg():
     return dataclasses.asdict(RenderConfig())
 
 
-@pytest.mark.parametrize("name,builder", [("cornell", cornell),
-                                          ("museum", museum)])
-def test_scene_inputs_equal_the_ports_builder(name, builder):
+def _port_scene(name):
     from yetanotherconsolegameengine_tpu_torch.scene.builders import \
         SCENE_BUILDERS
-    got = check.program_inputs(SCENE_BUILDERS[name]())
-    assert check.scene_diff(got, builder.build()) == 0
+    from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import \
+        FORCED_SCENE_BUILDERS
+    return {**SCENE_BUILDERS, **FORCED_SCENE_BUILDERS}[name]()
 
 
-@pytest.mark.parametrize("name,builder,frames", [("cornell", cornell, 3),
-                                                 ("museum", museum, 1)])
+@pytest.mark.parametrize("name,builder", [
+    ("cornell", cornell), ("museum", museum), ("fine_forced", fine_forced),
+    pytest.param("dragon", dragon, marks=pytest.mark.slow)])
+def test_scene_inputs_equal_the_ports_builder(name, builder):
+    """Equal to the last bit: the tables, and a cluster mesh's four sets
+    (triangles, width of a cluster, t_bias) in the order-free form."""
+    got = check.program_inputs(_port_scene(name))
+    want = check.as_compared(builder.build())
+    assert check.scene_diff(got, want) == 0
+    if name in ("fine_forced", "dragon"):
+        assert {k for k in got if k.startswith("mesh")} == {
+            f"{s}.{k}" for s in check.CLUSTER_TABLES
+            for k in ("rows", "kc", "t_bias")}
+
+
+def test_cluster_inputs_count_every_changed_triangle():
+    """A triangle dropped, a vertex or an edge moved, a material or a
+    t_bias changed each reads as unequal; another packing order does
+    not."""
+    want = check.as_compared(fine_forced.build())
+    scene = _port_scene("fine_forced")
+    got = check.program_inputs(scene)
+    rows = scene.mesh_clusters_lod.tri_rows
+    full = rows.shape[0] - scene.mesh_clusters_lod.kc   # whole clusters
+    rows[:full] = rows[:full].flip(0).clone()   # another packing order
+    assert check.scene_diff(check.program_inputs(scene), want) == 0
+    for key, change in (("mesh_lod.rows", lambda r: r[:-1]),
+                        ("mesh_fine.t_bias", lambda r: r + 1e-9)):
+        bad = dict(got, **{key: change(got[key])})
+        assert check.scene_diff(bad, want) > 0, key
+    for col in (0, 4, 12):
+        bad = dict(got, **{"mesh_shadow.rows": got["mesh_shadow.rows"].copy()})
+        bad["mesh_shadow.rows"][7, col] += 1.0
+        assert check.scene_diff(bad, want) == 1
+
+
+@pytest.mark.parametrize("name,builder,frames", [
+    ("cornell", cornell, 3), ("museum", museum, 1),
+    ("fine_forced", fine_forced, 3)])
 def test_frames_equal_the_ports_plain_path(name, builder, frames):
     from yetanotherconsolegameengine_tpu_torch.render.renderer import \
         RaytraceRenderer
-    from yetanotherconsolegameengine_tpu_torch.scene.builders import \
-        SCENE_BUILDERS
     inputs = builder.build()
     scene = ref_scene.Scene.from_inputs(inputs, "cpu")
     keys = lambda t: {"w", "left"} if t % 2 else set()
     poses = camera.call_poses(keys, 1, 1 / 30, scene.defaults, frames)
-    r = RaytraceRenderer(SCENE_BUILDERS[name](), FB_W, FB_H, device="cpu")
+    r = RaytraceRenderer(_port_scene(name), FB_W, FB_H, device="cpu")
     state = frame.init_state(FB_W, 2 * FB_H, "cpu", torch.float32)
     for c in range(frames):
         _, out = r.render_many(1, poses=poses[c][1])
@@ -118,18 +157,35 @@ def test_call_poses_replay_the_fly_camera():
     assert [tick for tick, _ in got] == [0, 1, 9]
 
 
-def test_mesh_box_skip_keeps_every_hit():
-    """Testing each mesh object only against the rays that meet its box
-    gives what testing every triangle gives, bit for bit."""
+def _icosphere_scene():
+    """A 20,480-triangle mesh beside a box."""
+    s = ref_scene.SceneBuilder("icosphere")
+    s.box((1.5, 0.0, -9.0), (2.5, 1.0, -8.0), ref_scene.Material())
+    s.mesh(ref_scene.transform_mesh(ref_scene.icosphere(5), 1.6,
+                                    (0.0, 1.2, -8.0)),
+           ref_scene.Material.solid((0.9, 0.9, 0.9)))
+    return s.build()
+
+
+@pytest.mark.parametrize("builder", [museum.build, _icosphere_scene])
+def test_mesh_box_skip_keeps_every_hit(builder):
+    """Testing each mesh object only against the rays that meet its box,
+    and each spatial group only against those that meet the group's box,
+    gives what testing every triangle as one group gives, bit for bit."""
     from types import SimpleNamespace
 
     from benchmark.reference import trace
-    scene = ref_scene.Scene.from_inputs(museum.build(), "cpu")
+    scene = ref_scene.Scene.from_inputs(builder(), "cpu")
     m = scene.mesh
+    N = m.a.shape[0]
+    assert N >= 2_000 and sum(o.groups.lo.shape[0] for o in m.objects) > 30
     every = SimpleNamespace(**vars(m))
-    every.groups = [SimpleNamespace(
-        idx=torch.arange(m.a.shape[0]), a=m.a, e1=m.e1, e2=m.e2,
-        lo=torch.full((3,), -trace.INF), hi=torch.full((3,), trace.INF))]
+    every.objects = [SimpleNamespace(
+        lo=torch.full((3,), -trace.INF), hi=torch.full((3,), trace.INF),
+        groups=SimpleNamespace(
+            idx=torch.arange(N)[None], a=m.a[None], e1=m.e1[None],
+            e2=m.e2[None], lo=torch.full((1, 3), -trace.INF),
+            hi=torch.full((1, 3), trace.INF)))]
     g = torch.Generator().manual_seed(3)
     P = 3000
     o = torch.rand(P, 3, generator=g) * torch.tensor([24.0, 5.0, 16.0]) \
@@ -151,6 +207,68 @@ def test_mesh_box_skip_keeps_every_hit():
     assert int(want.hit.sum()) > 300
     for k in ("t", "n", "u", "v", "mat", "hit"):
         assert torch.equal(getattr(got, k), getattr(want, k)), k
+
+
+def test_each_population_meets_its_own_mesh_set():
+    """Round 0 meets the fine set, later rounds the LOD set, shadow rays
+    the shadow set; with the knobs off every population meets the full
+    mesh; a proxy set starts at its t_bias; a scene with no proxy sets
+    routes every population to its mesh."""
+    from benchmark.reference import trace
+    s = ref_scene.Scene.from_inputs(fine_forced.build(), "cpu")
+    on = {"primary_mesh_lod": True, "secondary_mesh_lod": True}
+    off = {"primary_mesh_lod": False, "secondary_mesh_lod": False}
+    sets = {p: trace.mesh_set(s, on, p)
+            for p in ("primary", "bounce", "shadow")}
+    assert sets == {"primary": s.mesh_fine, "bounce": s.mesh_lod,
+                    "shadow": s.mesh_shadow}
+    assert [trace.mesh_set(s, off, p) for p in sets] == [s.mesh] * 3
+    assert trace.mesh_set(s, dict(on, secondary_mesh_lod=False),
+                          "shadow") is s.mesh
+    assert trace.mesh_set(s, dict(on, primary_mesh_lod=False),
+                          "primary") is s.mesh
+    assert 0.0 == s.mesh.t_bias == s.mesh_fine.t_bias \
+        < s.mesh_lod.t_bias < s.mesh_shadow.t_bias
+    museum_scene = ref_scene.Scene.from_inputs(museum.build(), "cpu")
+    assert {trace.mesh_set(museum_scene, {}, p) is museum_scene.mesh
+            for p in sets} == {True}
+
+    # A ray 0.2 in front of the sphere (t_bias of the LOD set 0.41): the
+    # full set is met at about 0.2, the LOD set only on the far side.
+    o = torch.tensor([[0.0, 0.9, -2.4 + 0.65 + 0.2]])
+    d = torch.tensor([[0.0, 0.0, -1.0]])
+    near = trace.intersect(s, o, d, 1e-3, trace.INF, s.mesh)
+    far = trace.intersect(s, o, d, 1e-3, trace.INF, s.mesh_lod)
+    assert near.hit.all() and far.hit.all()
+    assert 0.15 < float(near.t) < 0.25
+    assert float(far.t) > 1.0 > s.mesh_lod.t_bias
+
+
+def test_trace_passes_each_sweep_its_population(monkeypatch):
+    """trace_pixels meets the fine set in round 0 and the LOD set after
+    it; its shadow rays meet the shadow set."""
+    import sys
+
+    from benchmark.reference import trace
+    s = ref_scene.Scene.from_inputs(fine_forced.build(), "cpu")
+    seen = []
+    real = trace.intersect
+
+    def spy(scene, o, d, tmin, tmax, mesh_tb):
+        seen.append((sys._getframe(1).f_code.co_name, mesh_tb))
+        return real(scene, o, d, tmin, tmax, mesh_tb)
+    monkeypatch.setattr(trace, "intersect", spy)
+    pos = torch.tensor([[0.0, 1.3, 1.2]])
+    rows = frame.camera_rows(pos, torch.zeros(1), torch.zeros(1),
+                             torch.tensor([60.0]), 16, 16, torch.ones(1))
+    o, d, px, py = frame.primary_rays(rows[0], 16, 16)
+    seed = frame.pixel_seed(px, py, 1, 7).reshape(-1)
+    trace.trace_pixels(s, o, d, seed, _cfg())
+    camera_rays = [m for f, m in seen if f == "trace_pixels"]
+    shadow_rays = [m for f, m in seen if f == "transmittance"]
+    assert camera_rays[0] is s.mesh_fine and len(camera_rays) > 1
+    assert all(m is s.mesh_lod for m in camera_rays[1:])
+    assert shadow_rays and all(m is s.mesh_shadow for m in shadow_rays)
 
 
 @pytest.mark.parametrize("traffic", ["play", "batch8"])
@@ -184,3 +302,17 @@ def test_key_schedule_holds_every_segment_and_comes_back(traffic):
         runs.append(seq)
     assert runs[0] != runs[1]
     assert sorted(map(sorted, runs[0])) == sorted(map(sorted, runs[1]))
+
+
+@pytest.mark.cuda
+def test_the_dragon_holds_the_museum_limits_on_the_card(card):
+    """The dragon at 240x135 under museum.play's traffic and limits, three
+    seeds: every number within its limit; the bfloat16 control fails one."""
+    from benchmark.run import run_cell
+    for seed in (2**31 + 41, 2**31 + 42, 2**31 + 43):
+        result, _, errors = run_cell("museum.play", seed, 3.0, 0,
+                                     overrides=DRAGON, control=True)
+        limits = {k: v["limit"] for k, v in result["check"].items()}
+        assert result["correct"], (result["check"], errors)
+        assert any(result["control"][k] > limits[k]
+                   for k in check.CONTROL_NUMBERS), result["control"]
