@@ -243,6 +243,24 @@ def test_shadow_span_encloses_a_range_wrapped_around_the_loop(monkeypatch):
         assert any(c.name.startswith("aten::") for c in ev.cpu_children)
 
 
+def test_a_span_leaves_its_kernels_to_a_stage_range_around_it():
+    """A span opens a range of the operators' (function) scope, not a user
+    range: a device trace gives a kernel the innermost user range open at
+    its launch, so a span inside a range a tool wraps around a function
+    (as ``benchmark/devtrace.py::patch_stages`` does) takes none of the
+    range's kernels away from it."""
+    from torch.autograd.profiler import record_function
+    with _cpu_profile() as prof:
+        with record_function("a stage"):
+            with profiling.span("clusters.sweep"):
+                torch.ones(3).add_(1.0)
+    ev = {e.name: e for e in prof.events()}
+    assert ev["clusters.sweep"].cpu_parent.name == "a stage"
+    assert ev["aten::add_"].cpu_parent.name == "clusters.sweep"
+    assert ev["clusters.sweep"].scope == ev["aten::add_"].scope
+    assert ev["clusters.sweep"].scope != ev["a stage"].scope
+
+
 READERS = {   # metric: (what it reads, per)
     "shell.compose_ms": ("present.compose", "ticks"),
     "shell.encode_ms": ("present.encode", "ticks"),
@@ -254,6 +272,8 @@ READERS = {   # metric: (what it reads, per)
     "wavefront.shadow_sweeps": ("counter", "frames"),
     "device.syncs_per_frame": ("syncs", "frames"),
     "device.sync_wait_ms": ("sync ns", "frames"),
+    "clusters.host_ms": ("clusters.sweep", "frames"),
+    "clusters.sweeps": ("counter", "frames"),
 }
 
 
@@ -267,6 +287,7 @@ def test_metric_reader_reads_the_registry(name, monkeypatch):
     for span in profiling.SPAN_NAMES:
         profiling.SPANS[span] = [3, 7_000_000, 1_000_000]
     profiling.COUNTS["wavefront.shadow_sweeps"] = 30
+    profiling.COUNTS["clusters.sweeps"] = 30
     profiling.SYNCS.update({"entity.copy_wait": 8, "trace.round_live": 16})
     profiling.SYNC_NS.update({"entity.copy_wait": 2_000_000,
                               "trace.round_live": 6_000_000})
@@ -297,6 +318,54 @@ def test_metric_readers_stay_silent_without_the_tracer(monkeypatch):
                         cell=None)
     for name in READERS:
         assert spec.metric_reader(name).read(t) is None, name
+
+
+DEVICE_READERS = {   # metric: the device-trace stage it reads
+    "k3.device_ms": "K3 cluster sweeps",
+    "k3.roofline_share": "K3 cluster sweeps",
+    "clusters.torch_device_ms": "cluster sweep host side (torch)",
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEVICE_READERS))
+def test_device_trace_readers_read_their_stage(name, monkeypatch):
+    """Each reads its stage's device ms over the profiled frames (K3's
+    share: its frozen least time over them, whatever the program counts),
+    and None without a profile, a frame or the stage."""
+    import inspect
+
+    from benchmark import devtrace, spec
+    reader = spec.metric_reader(name)
+    stage = DEVICE_READERS[name]
+    assert stage in {label for _, label in devtrace.STAGES}
+
+    def traced(stage_ms, frames=4):
+        return SimpleNamespace(prof=SimpleNamespace(
+            stage_ms=stage_ms, frames=frames, ops=[]), spans=None, cell=None)
+    t = traced({stage: 6.0, "K1 post": 1.0, devtrace.OTHER: 9.0})
+    if name == "k3.roofline_share":
+        bound = devtrace.roofline(reader.LANE_TESTS * 40, reader.BYTES)
+        assert bound > 0
+        assert reader.read(t) == pytest.approx(100.0 * bound / 1.5)
+        assert "yetanotherconsolegameengine_tpu_torch" not in \
+            inspect.getsource(reader)
+        kernels.reset_launches()
+        try:
+            profiling.COUNTS.update({"clusters.sweeps": 7,
+                                     "clusters.rays": 10**6})
+            profiling.SPANS["clusters.sweep"] = [7, 9_000_000, 1_000_000]
+            assert reader.read(t) == pytest.approx(100.0 * bound / 1.5)
+        finally:
+            kernels.reset_launches()
+        monkeypatch.setattr(reader, "LANE_TESTS", 2 * reader.LANE_TESTS)
+        monkeypatch.setattr(reader, "BYTES", 2 * reader.BYTES)
+        assert reader.read(t) == pytest.approx(200.0 * bound / 1.5)
+    else:
+        assert reader.read(t) == pytest.approx(1.5)
+    assert reader.read(SimpleNamespace(prof=None, spans=None,
+                                       cell=None)) is None
+    assert reader.read(traced({"K1 post": 1.0})) is None
+    assert reader.read(traced({stage: 6.0}, frames=0)) is None
 
 
 def test_span_names_are_disjoint_from_the_benchmark_labels():

@@ -27,6 +27,7 @@ import dataclasses
 import torch
 
 from ..devices import resolve_impl
+from ..utils import profiling
 
 INF = 3.0e38
 
@@ -338,7 +339,8 @@ def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
     best t after them clips the voxel sweep's. The
     cluster set follows the population: ``lod`` and ``shadow`` -> the
     shadow proxy set, ``lod`` -> the LOD proxy set, ``fine`` -> the fine
-    proxy set, each only when the scene has it; the proxy sets start at
+    proxy set, each only when the scene has it (counted under
+    ``clusters.sweeps.<full|fine|lod|shadow>``); the proxy sets start at
     ``max(tmin, t_bias)``. ``shadow`` queries run in any-hit mode when
     every mesh material is opaque or the scene's shadows are binary.
     ``presort`` bins the rays before the sweep; ``impl`` picks the
@@ -361,12 +363,14 @@ def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
         from .mesh_clusters import intersect_clusters
         mc_tmin = tmin
         proxy = None
+        met = "full"
         if lod and shadow and scene.mesh_clusters_shadow is not None:
-            proxy = scene.mesh_clusters_shadow
+            proxy, met = scene.mesh_clusters_shadow, "shadow"
         elif lod and scene.mesh_clusters_lod is not None:
-            proxy = scene.mesh_clusters_lod
+            proxy, met = scene.mesh_clusters_lod, "lod"
         elif fine and scene.mesh_clusters_fine is not None:
-            mc = scene.mesh_clusters_fine
+            mc, met = scene.mesh_clusters_fine, "fine"
+        profiling.count("clusters.sweeps." + met)
         if proxy is not None:
             mc = proxy
             mc_tmin = torch.clamp(_col(tmin, o)[:, 0], min=mc.t_bias)

@@ -291,52 +291,71 @@ def intersect_clusters(mc: MeshClusters, o, d, tmin, tmax,
     sweeps with K3 (``cluster_kernel.trace_tiles``), "plain" with its
     plain version; None picks from the rays' device and "kernel" off CUDA
     raises. ``stats=True`` also returns (entries tested, list length) per
-    tile."""
+    tile.
+
+    Counts ``clusters.sweeps`` (one a call) and ``clusters.rays`` (P),
+    and opens the span ``clusters.sweep`` around the whole, with
+    ``clusters.cull`` (prefilter, binning sort, tile cull) and
+    ``clusters.resolve`` (unsort, row gather, recompute) inside it."""
+    profiling.count("clusters.sweeps")
+    profiling.count("clusters.rays", o.shape[0])
+    with profiling.span("clusters.sweep"):
+        res, steps, lens = _sweep(mc, o, d, tmin, tmax, any_hit, presort,
+                                  resolve_impl(impl, o.device))
+    if stats:
+        return res, (steps, lens)
+    return res
+
+
+def _sweep(mc: MeshClusters, o, d, tmin, tmax, any_hit: bool,
+           presort: bool, impl: str):
+    """``intersect_clusters`` under its span: (hit, steps, lens)."""
     P = o.shape[0]
     dev = o.device
-    impl = resolve_impl(impl, dev)
     T = TILE
-    t_lo = _column(tmin, P, dev)
-    t_hi = _column(tmax, P, dev)
-    Pp = (P + T - 1) // T * T
-    pad = Pp - P
-    bounds = mc.bounds
-    active = o.abs().amax(1) < 1.0e30
-    # Global-AABB prefilter and per-ray window clamp.
-    inv_d = _safe_div(torch.ones_like(d), d)
-    ta = (bounds[0][None] - o) * inv_d
-    tb = (bounds[1][None] - o) * inv_d
-    tn = torch.minimum(ta, tb).amax(1)
-    tf = torch.maximum(ta, tb).amin(1)
-    active = active & (tn <= tf) & (tf >= t_lo) & (tn <= t_hi)
-    t_hi = torch.minimum(t_hi, tf * 1.0001 + 1e-3)
-    o_p, d_p = o, d
-    if pad:
-        o_p = torch.cat([o, torch.zeros((pad, 3), device=dev)])
-        d_p = torch.cat([d, torch.ones((pad, 3), device=dev)])
-        z = torch.zeros(pad, device=dev)
-        t_lo = torch.cat([t_lo, z])
-        t_hi = torch.cat([t_hi, z])
-        active = torch.cat([active, z.bool()])
+    with profiling.span("clusters.cull"):
+        t_lo = _column(tmin, P, dev)
+        t_hi = _column(tmax, P, dev)
+        Pp = (P + T - 1) // T * T
+        pad = Pp - P
+        bounds = mc.bounds
+        active = o.abs().amax(1) < 1.0e30
+        # Global-AABB prefilter and per-ray window clamp.
+        inv_d = _safe_div(torch.ones_like(d), d)
+        ta = (bounds[0][None] - o) * inv_d
+        tb = (bounds[1][None] - o) * inv_d
+        tn = torch.minimum(ta, tb).amax(1)
+        tf = torch.maximum(ta, tb).amin(1)
+        active = active & (tn <= tf) & (tf >= t_lo) & (tn <= t_hi)
+        t_hi = torch.minimum(t_hi, tf * 1.0001 + 1e-3)
+        o_p, d_p = o, d
+        if pad:
+            o_p = torch.cat([o, torch.zeros((pad, 3), device=dev)])
+            d_p = torch.cat([d, torch.ones((pad, 3), device=dev)])
+            z = torch.zeros(pad, device=dev)
+            t_lo = torch.cat([t_lo, z])
+            t_hi = torch.cat([t_hi, z])
+            active = torch.cat([active, z.bool()])
 
-    if presort:
-        key = _sort_keys(o_p, d_p, active, bounds)
-        sidx = torch.sort(key, stable=True).indices
-        # One packed row gather; active rides in the sign of t_hi (an
-        # active window is strictly positive).
-        thi_m = torch.where(active, t_hi, -1.0)
-        rows8 = torch.cat([o_p, d_p, t_lo[:, None], thi_m[:, None]], 1)[sidx]
-        o_s, d_s, tlo_s = rows8[:, 0:3], rows8[:, 3:6], rows8[:, 6]
-        act_s = rows8[:, 7] >= 0.0
-        thi_s = torch.clamp(rows8[:, 7], min=0.0)
-    else:
-        o_s, d_s, tlo_s, thi_s, act_s = o_p, d_p, t_lo, t_hi, active
+        if presort:
+            key = _sort_keys(o_p, d_p, active, bounds)
+            sidx = torch.sort(key, stable=True).indices
+            # One packed row gather; active rides in the sign of t_hi (an
+            # active window is strictly positive).
+            thi_m = torch.where(active, t_hi, -1.0)
+            rows8 = torch.cat([o_p, d_p, t_lo[:, None], thi_m[:, None]],
+                              1)[sidx]
+            o_s, d_s, tlo_s = rows8[:, 0:3], rows8[:, 3:6], rows8[:, 6]
+            act_s = rows8[:, 7] >= 0.0
+            thi_s = torch.clamp(rows8[:, 7], min=0.0)
+        else:
+            o_s, d_s, tlo_s, thi_s, act_s = o_p, d_p, t_lo, t_hi, active
 
-    n_tiles = Pp // T
-    ids, entry_t, lens = _tile_cull(
-        o_s.reshape(n_tiles, T, 3), d_s.reshape(n_tiles, T, 3),
-        act_s.reshape(n_tiles, T), thi_s.reshape(n_tiles, T),
-        mc.cbmin, mc.cbmax)
+        n_tiles = Pp // T
+        ids, entry_t, lens = _tile_cull(
+            o_s.reshape(n_tiles, T, 3), d_s.reshape(n_tiles, T, 3),
+            act_s.reshape(n_tiles, T), thi_s.reshape(n_tiles, T),
+            mc.cbmin, mc.cbmax)
     tinit = torch.where(act_s, torch.clamp(thi_s, max=3.0e37), -float("inf"))
     rays = torch.cat([o_s, d_s, tlo_s[:, None], tinit[:, None]], 1)
     sweep = (cluster_kernel.trace_tiles if impl == "kernel"
@@ -344,39 +363,38 @@ def intersect_clusters(mc: MeshClusters, o, d, tmin, tmax,
     t_w, win, steps = sweep(lens, ids, entry_t, mc.gmat, rays, any_hit,
                             tie_mask(mc.kc))
 
-    # Unsort the two winner words with one permutation scatter.
-    words = torch.stack([t_w.view(torch.int32), win], 1)
-    if presort:
-        words = torch.empty_like(words).index_copy_(0, sidx, words)
-    t_w = words[:P, 0].view(torch.float32)
-    win = words[:P, 1]
-    hit = win >= 0
+    with profiling.span("clusters.resolve"):
+        # Unsort the two winner words with one permutation scatter.
+        words = torch.stack([t_w.view(torch.int32), win], 1)
+        if presort:
+            words = torch.empty_like(words).index_copy_(0, sidx, words)
+        t_w = words[:P, 0].view(torch.float32)
+        win = words[:P, 1]
+        hit = win >= 0
 
-    if any_hit:
-        z = torch.zeros_like(t_w)
-        mat0 = mc.tri_rows[0, 12].to(torch.int32)
-        res = Hit(t=torch.where(hit, t_w, INF), n=-d, u=z, v=z,
-                         mat=torch.where(hit, mat0, 0), hit=hit)
-    else:
-        flat = torch.where(hit, win, 0).long()
-        row = mc.tri_rows[flat]                     # the per-ray gather
-        a, e1, e2, n = row[:, 0:3], row[:, 3:6], row[:, 6:9], row[:, 9:12]
-        # Exact single-triangle Möller–Trumbore recompute.
-        h = cross3(d, e2)
-        det = dot3(e1, h)
-        inv_det = _safe_div(torch.ones_like(det), det)
-        s = o - a
-        u = dot3(s, h) * inv_det
-        q = cross3(s, e1)
-        v = dot3(d, q) * inv_det
-        t = dot3(e2, q) * inv_det
-        ok = det.abs() >= 1e-12
-        t = torch.where(ok, t, t_w)
-        u = torch.clamp(torch.where(ok, u, 0.0), 0.0, 1.0)
-        v = torch.clamp(torch.where(ok, v, 0.0), 0.0, 1.0)
-        n = torch.where((dot3(n, d) < 0.0)[:, None], n, -n)
-        res = Hit(t=torch.where(hit, t, INF), n=n, u=u, v=v,
-                         mat=row[:, 12].to(torch.int32), hit=hit)
-    if stats:
-        return res, (steps, lens)
-    return res
+        if any_hit:
+            z = torch.zeros_like(t_w)
+            mat0 = mc.tri_rows[0, 12].to(torch.int32)
+            res = Hit(t=torch.where(hit, t_w, INF), n=-d, u=z, v=z,
+                      mat=torch.where(hit, mat0, 0), hit=hit)
+        else:
+            flat = torch.where(hit, win, 0).long()
+            row = mc.tri_rows[flat]                     # the per-ray gather
+            a, e1, e2, n = row[:, 0:3], row[:, 3:6], row[:, 6:9], row[:, 9:12]
+            # Exact single-triangle Möller–Trumbore recompute.
+            h = cross3(d, e2)
+            det = dot3(e1, h)
+            inv_det = _safe_div(torch.ones_like(det), det)
+            s = o - a
+            u = dot3(s, h) * inv_det
+            q = cross3(s, e1)
+            v = dot3(d, q) * inv_det
+            t = dot3(e2, q) * inv_det
+            ok = det.abs() >= 1e-12
+            t = torch.where(ok, t, t_w)
+            u = torch.clamp(torch.where(ok, u, 0.0), 0.0, 1.0)
+            v = torch.clamp(torch.where(ok, v, 0.0), 0.0, 1.0)
+            n = torch.where((dot3(n, d) < 0.0)[:, None], n, -n)
+            res = Hit(t=torch.where(hit, t, INF), n=n, u=u, v=v,
+                      mat=row[:, 12].to(torch.int32), hit=hit)
+    return res, steps, lens

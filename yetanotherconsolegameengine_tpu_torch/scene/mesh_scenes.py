@@ -167,8 +167,7 @@ def build_cluster_forced_scene(subdiv: int = 3) -> SceneData:
 def build_fine_forced_scene() -> SceneData:
     """The dragon's proxy routing at toy scale (the ``fine_forced``
     golden): a 5.1k-triangle icosphere with fine, LOD and shadow cluster
-    sets built at tiny budgets and composed t_biases (lod = LOD + fine,
-    shadow = LOD + fine + shadow)."""
+    sets built at tiny budgets (``forced_cluster_sets``)."""
     s = SceneBuilder("fine_forced")
     s.add_xz_rect(-6.0, 6.0, -6.0, 3.0, 0.0,
                   Material.checker((0.8, 0.8, 0.8), (0.2, 0.2, 0.2), 0.8))
@@ -179,21 +178,31 @@ def build_fine_forced_scene() -> SceneData:
     mid = s._mesh_tris[-1][1]
     s.set_camera((0.0, 1.3, 1.2), fov=60.0)
 
-    mats = np.full(tris.shape[0], mid, np.int32)
+    return s.build(clusters=forced_cluster_sets(
+        tris, np.full(tris.shape[0], mid, np.int32)))
+
+
+def forced_cluster_sets(tris: np.ndarray, mats: np.ndarray,
+                        fine: int = 2048, lod: int = 512,
+                        shadow: int = 128) -> dict:
+    """Cluster tables of a mesh of any size, with fine, LOD and shadow
+    proxy sets of at most ``fine``, ``lod`` and ``shadow`` triangles and
+    composed t_biases (lod = LOD + fine, shadow = LOD + fine + shadow):
+    ``SceneBuilder.build``'s ``clusters`` for a small test scene."""
     full = build_clusters(tris[:, 0], tris[:, 1], tris[:, 2], mats)
-    f_tris, f_mats, fine_bias = simplify_soup(tris, mats, 2048)
-    fine = build_clusters(f_tris[:, 0], f_tris[:, 1], f_tris[:, 2],
-                          f_mats, kc=PROXY_KC)
-    l_tris, l_mats, lod_bias = simplify_soup(tris, mats, 512)
-    lod = build_clusters(l_tris[:, 0], l_tris[:, 1], l_tris[:, 2], l_mats,
-                         t_bias=lod_bias + fine_bias, kc=PROXY_KC)
-    sh_tris, sh_mats, sh_bias = simplify_soup(l_tris, l_mats, 128)
-    shadow = build_clusters(sh_tris[:, 0], sh_tris[:, 1], sh_tris[:, 2],
-                            sh_mats, t_bias=lod_bias + fine_bias + sh_bias,
-                            kc=PROXY_KC)
-    return s.build(clusters=dict(
-        mesh_clusters=full, mesh_clusters_fine=fine, mesh_clusters_lod=lod,
-        mesh_clusters_shadow=shadow))
+    f_tris, f_mats, fine_bias = simplify_soup(tris, mats, fine)
+    fine_set = build_clusters(f_tris[:, 0], f_tris[:, 1], f_tris[:, 2],
+                              f_mats, kc=PROXY_KC)
+    l_tris, l_mats, lod_bias = simplify_soup(tris, mats, lod)
+    lod_set = build_clusters(l_tris[:, 0], l_tris[:, 1], l_tris[:, 2],
+                             l_mats, t_bias=lod_bias + fine_bias,
+                             kc=PROXY_KC)
+    sh_tris, sh_mats, sh_bias = simplify_soup(l_tris, l_mats, shadow)
+    shadow_set = build_clusters(
+        sh_tris[:, 0], sh_tris[:, 1], sh_tris[:, 2], sh_mats,
+        t_bias=lod_bias + fine_bias + sh_bias, kc=PROXY_KC)
+    return dict(mesh_clusters=full, mesh_clusters_fine=fine_set,
+                mesh_clusters_lod=lod_set, mesh_clusters_shadow=shadow_set)
 
 
 FORCED_SCENE_BUILDERS = {

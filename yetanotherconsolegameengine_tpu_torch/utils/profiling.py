@@ -5,12 +5,17 @@ port's one tracer and its registry of totals:
 
 - ``span(name)`` times a stage of the program. With no ``torch.profiler``
   recording it costs one flag check and returns a shared no-op context.
-  While one records, it opens a ``record_function`` range of that name,
-  so the stage lies on the trace's clock beside the kernels it launched,
-  and adds to ``SPANS[name]``: [calls, inclusive ns, self ns], self being
-  the duration less that of the spans opened inside it. No list of spans
-  is kept: the timeline is the profiler's trace (``device_trace``,
-  ``program.py --profile DIR``). Spans are opened on one thread.
+  While one records, it opens a range of that name in the profiler's
+  function scope (as an operator's, not a ``record_function`` user
+  range), so the stage lies on the trace's clock beside the kernels it
+  launched, and adds to ``SPANS[name]``: [calls, inclusive ns, self ns].
+  A device trace annotates a kernel with the innermost user range open at
+  its launch only: a span, never one, leaves every kernel inside it to a
+  stage range that a tool wraps around the function that opens the span
+  (``benchmark/devtrace.py::patch_stages``). Self is the duration less
+  that of the spans opened inside it. No list of spans is kept: the
+  timeline is the profiler's trace (``device_trace``, ``program.py
+  --profile DIR``). Spans are opened on one thread.
 - ``count(name, n)`` adds to ``COUNTS``, whether a profiler records or not.
 - ``sync(site, fn, *args)`` returns ``fn(*args)``, a call at which the
   host waits for the device: a read of a device value, a blocking copy
@@ -43,6 +48,7 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _autograd_profiler
 
 # The registry. Spans and the ns of syncs fill only while a profiler
@@ -56,7 +62,8 @@ TABLES: Dict[str, dict] = {}              # register(): name -> counters
 # Every span the port opens (a sync's range is "sync.<site>").
 SPAN_NAMES = ("tick", "tick.input", "tick.hud", "component.update",
               "component.blit", "render.call", "render.prep", "frame.trace",
-              "frame.post", "wavefront.shadow", "present.compose",
+              "frame.post", "wavefront.shadow", "clusters.sweep",
+              "clusters.cull", "clusters.resolve", "present.compose",
               "present.encode", "present.write")
 SYNC_PREFIX = "sync."
 
@@ -71,7 +78,7 @@ class _Span:
 
     def __init__(self, name: str):
         self.name = name
-        self._range = _autograd_profiler.record_function(name)
+        self._range = _RecordFunctionFast(name)
 
     def __enter__(self):
         self._range.__enter__()
