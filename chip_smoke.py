@@ -94,7 +94,8 @@ Phases (one line each; any failure raises and exits non-zero):
      ms/frame and DDA sweeps
  19. one frame each of ``teapot``, ``cow``, ``all_meshes`` and ``museum``
      on the card against the port's plain renderer on the CPU, the walk
-     kernel launched, then each timed at 160x90
+     kernel launched, then each timed at 160x90 (the walk and primitive
+     kernels launched)
  20. dynamic scenes: ``exhibit_ring`` and ``spinning_mesh`` patched on the
      card (``DynamicScene.at_time``, the spinning mesh's LBVH rebuilt
      there) equal to the CPU at t = 0, 1.3 and 2.0, with the patch time;
@@ -149,6 +150,15 @@ Phases (one line each; any failure raises and exits non-zero):
      functions, each printed row parsed, its rates finite and positive
      and its ``kernels`` those of the scene's route; (c) ``python -m
      yetanotherconsolegameengine_tpu_torch.bench`` once
+ 25. the primitive kernel (``ops/csrc/prim_kernel.cu`` through
+     ``ops/intersect.py::sweep_primitives``) against the plain loop
+     (``intersect_primitives``) on the card, bit for bit, on every
+     primitive sweep of a museum frame at 160x90 (28,800 rays a round,
+     230,400 light lanes a shadow sweep); one sweep of each width timed
+     (device time, CUDA events, the plain loop), with its least time and
+     share; then ``prim_cases`` at 64x48 (the scenes' primary, bounce and
+     shadow rays, the stress tables and rays, each table alone, none, and
+     spheres and triangles of 600 more rows) bit for bit
 Every timed run asserts that the plain walk and DDA loops ran no round.
 Then a JSON line of per-kernel results (``ms`` is the device time,
 ``event_ms`` the CUDA-event time, ``share`` the bound over ``ms``;
@@ -157,7 +167,8 @@ K3, the bunny's for the walk kernel and the forced-DDA island's for the
 DDA kernel, ``launches_by_path`` every timed run, the shell's runs, the
 sharded runs and the suite's rows; K1's ``global_memory`` holds phase
 6d; the walk kernel's ``cases`` its phase 11 cases, the DDA kernel's its
-phase 15 cases and phase 18's island sweeps),
+phase 15 cases and phase 18's island sweeps; the primitive kernel's
+times its 28,800-ray sweep, ``shadow_sweep`` its 230,400-ray one),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -185,11 +196,12 @@ from yetanotherconsolegameengine_tpu_torch.config import DEFAULT_CONFIG
 from yetanotherconsolegameengine_tpu_torch.core.camera import (
     make_jittered_rays, ray_params)
 from yetanotherconsolegameengine_tpu_torch.ops import (cluster_kernel, dda,
-                                                       kernels, lbvh,
-                                                       mesh_bvh, post_kernel)
+                                                       intersect, kernels,
+                                                       lbvh, mesh_bvh,
+                                                       post_kernel)
 from yetanotherconsolegameengine_tpu_torch.ops import trace_kernel
 from yetanotherconsolegameengine_tpu_torch.ops.intersect import (
-    INF, INTERSECTORS, _lanes)
+    INF, INTERSECTORS, _lanes, intersect_primitives)
 from yetanotherconsolegameengine_tpu_torch.render.renderer import (
     RaytraceRenderer, trace_wavefront_planes)
 from yetanotherconsolegameengine_tpu_torch.scene.builders import SCENE_BUILDERS
@@ -254,6 +266,14 @@ K1_GLOBAL = {"five_passes": {"atrous_iterations": 5},
 # count), of the previous frame's depth, normal and sky (5), the history's
 # RGB (3); out 6 RGB planes and the ANSI index plane.
 K1_PLANES = 11 + 5 + 3 + 7
+# fp32 operations of one row test of each primitive type in the primitive
+# kernel (ops/csrc/prim_kernel.cu; arithmetic and comparisons, the
+# winner's normal and u, v not counted), and the bytes a ray must move: o
+# and d in (24), t, n, u, v, mat and hit out (29), and 4 for each bound
+# given per lane; each table column is read once.
+PRIM_ROW_OPS = {"spheres": 27, "boxes": 29, "rects": 15, "cylinders": 60,
+                "disks": 35, "planes": 17, "triangles": 56}
+PRIM_RAY_BYTES = 24 + 29
 
 
 def k1_ops(cfg) -> int:
@@ -567,6 +587,247 @@ def dda_stress_cases(dev, n: int) -> dict:
     return cases
 
 
+# The primitive kernel's stress tables: every type, with rows that tie in t
+# within a type (twins: the first row wins) and across types (a rect and a
+# disk on one plane, a disk and a plane: the earlier type wins), a box and
+# a cylinder that rays start inside, and rims and edges for grazing rays.
+PRIM_FLOOR = (-8.0, 8.0, -12.0, 4.0)       # the floor rect's x and z extents
+PRIM_LEDGE = (1.0, 3.0, -4.0, -2.0, 0.5)   # a rect's x, z extents and y
+PRIM_DISK = ((2.0, 0.5, -3.0), 1.0)        # a disk on the ledge's plane
+PRIM_POOL = ((12.0, -2.0, -8.0), 3.0)      # a disk on the ground plane
+PRIM_BOX = ((5.0, 0.0, -2.0), (7.0, 2.0, 0.0))
+PRIM_CYL = ((-5.0, 0.0, -3.0), 1.0, 0.0, 3.0)
+
+
+def prim_stress_scene():
+    """A scene of every primitive type built for the primitive kernel's
+    edge cases (``PRIM_*`` above); each row its own material, so the
+    winner's ``mat`` names the row."""
+    from yetanotherconsolegameengine_tpu_torch.scene.materials import (
+        Material)
+    from yetanotherconsolegameengine_tpu_torch.scene.tables import (
+        SceneBuilder)
+    b = SceneBuilder("prim_stress")
+    mats = iter(Material.solid((0.02 * k, 0.5, 0.5)) for k in range(1, 64))
+    b.add_sphere((0.0, 1.0, -5.0), 1.0, next(mats))
+    b.add_sphere((0.0, 1.0, -5.0), 1.0, next(mats))          # its twin
+    b.add_sphere((3.0, 1.0, -6.0), 0.5, next(mats))
+    b.add_box((-3.0, 0.0, -7.0), (-1.0, 2.0, -5.0), next(mats))
+    b.add_box(*PRIM_BOX, next(mats))
+    x0, x1, z0, z1 = PRIM_FLOOR
+    b.add_xz_rect(x0, x1, z0, z1, 0.0, next(mats))
+    b.add_xz_rect(x0, x1, z0, z1, 0.0, next(mats))          # its twin
+    b.add_xy_rect(x0, x1, 0.0, 6.0, -12.0, next(mats))
+    b.add_xz_rect(-3.0, -1.0, -7.0, -5.0, 2.0, next(mats))   # on a box top
+    lx0, lx1, lz0, lz1, ly = PRIM_LEDGE
+    b.add_xz_rect(lx0, lx1, lz0, lz1, ly, next(mats))
+    b.add_yz_rect(0.0, 2.0, -10.0, -8.0, -7.0, next(mats))
+    (cx, _, cz), r, y0, y1 = PRIM_CYL
+    b.add_cylinder((cx, 0.0, cz), r, y0, y1, True, next(mats))
+    b.add_cylinder((4.0, 0.0, -8.0), 0.7, 0.0, 2.0, False, next(mats))
+    b.add_cylinder((-2.0, 0.0, -10.0), 0.5, 0.5, 1.5, True, next(mats))
+    b.add_disk(PRIM_DISK[0], (0.0, 1.0, 0.0), PRIM_DISK[1], next(mats))
+    b.add_disk(PRIM_POOL[0], (0.0, 1.0, 0.0), PRIM_POOL[1], next(mats))
+    b.add_disk((-6.0, 2.0, -9.0), (0.3, 0.5, 1.0), 1.2, next(mats))
+    b.add_plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0), next(mats))
+    b.add_plane((0.0, 0.0, -20.0), (0.05, 0.1, 1.0), next(mats))
+    b.add_triangle((-2.0, 3.0, -10.0), (2.0, 3.0, -10.0), (0.0, 5.0, -10.0),
+                   next(mats))
+    b.add_triangle((-4.0, 0.0, -19.0), (4.0, 0.0, -19.0), (0.0, 6.0, -19.0),
+                   next(mats))
+    b.add_light((0.0, 5.0, -4.0), (1.0, 1.0, 1.0), 10.0)
+    b.set_camera((0.0, 2.0, 3.0))
+    return b.build()
+
+
+def _unit(v):
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def _nudge(x, rs):
+    """``x`` (float32) moved by one ulp up or down, or kept, at random."""
+    x = x.astype(np.float32)
+    step = rs.randint(-1, 2, x.shape)
+    out = np.where(step > 0, np.nextafter(x, np.float32(np.inf)), x)
+    return np.where(step < 0, np.nextafter(x, np.float32(-np.inf)), out)
+
+
+def _edge_points(x0, x1, z0, z1, y, k, s):
+    """Points on the edges of the rect [x0, x1] x [z0, z1] at height y:
+    on edge k (x = x0, x = x1, z = z0, z = z1) at fraction s along it."""
+    along_x, along_z = x0 + s * (x1 - x0), z0 + s * (z1 - z0)
+    full = lambda v: np.full(s.shape, v)
+    return np.stack([np.choose(k, [full(x0), full(x1), along_x, along_x]),
+                     full(y),
+                     np.choose(k, [along_z, along_z, full(z0), full(z1)])],
+                    1)
+
+
+def prim_stress_rays(n: int, seed: int) -> dict:
+    """{name: (o, d, tmin, tmax)} of ``n`` numpy rays each at the stress
+    scene, tmin/tmax numbers or (n,) arrays: rays from above the floor in
+    every direction (per-lane bounds), every other one parked at 2.9e30 as
+    the wavefront parks a finished lane; rays starting inside the box and
+    the cylinder; rays aimed at the floor's and the ledge's edges and the
+    disks' rims with the aim moved by an ulp, and rays within 1e-6 of
+    parallel to the floor; rays straight down onto the twins and the
+    shared planes."""
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+    out = {}
+    o = rs.uniform((-8.0, 0.2, -14.0), (8.0, 6.0, 6.0), (n, 3))
+    d = _unit(rs.randn(n, 3))
+    lo = rs.uniform(1e-4, 1e-2, n).astype(f32)
+    hi = rs.uniform(1.0, 100.0, n).astype(f32)
+    out["stress_general"] = (o, d, lo, hi)
+    parked = np.where((np.arange(n) % 2 == 0)[:, None], o, 2.9e30)
+    out["stress_parked"] = (parked, d, 1e-3, hi)
+    (bmin, bmax), ((cx, _, cz), r, y0, y1) = PRIM_BOX, PRIM_CYL
+    in_box = rs.uniform(bmin, bmax, (n, 3))
+    ang, rad = rs.uniform(0.0, 2 * np.pi, n), r * np.sqrt(rs.uniform(0, 1, n))
+    in_cyl = np.stack([cx + rad * np.cos(ang), rs.uniform(y0, y1, n),
+                       cz + rad * np.sin(ang)], 1)
+    inside = np.where((np.arange(n) % 2 == 0)[:, None], in_box, in_cyl)
+    out["stress_inside"] = (inside, _unit(rs.randn(n, 3)), lo, INF)
+    # Edges and rims: the floor's x and z edges, the ledge's, the disks'.
+    k = rs.randint(0, 4, n)
+    s = rs.uniform(0.0, 1.0, n)
+    floor_edge = _edge_points(*PRIM_FLOOR, 0.0, k, s)
+    ledge_edge = _edge_points(*PRIM_LEDGE, k, s)
+    rims = []
+    for (c, rr) in (PRIM_DISK, PRIM_POOL):
+        a = rs.uniform(0.0, 2 * np.pi, n)
+        rims.append(np.stack([c[0] + rr * np.cos(a), np.full(n, c[1]),
+                              c[2] + rr * np.sin(a)], 1))
+    aim = np.choose(rs.randint(0, 4, n)[:, None],
+                    [floor_edge, ledge_edge, rims[0], rims[1]])
+    src = rs.uniform((-8.0, 1.0, -14.0), (8.0, 6.0, 6.0), (n, 3))
+    d = _unit(_nudge(aim, rs).astype(np.float64) - src)
+    out["stress_edges"] = (src, d, 1e-3, hi)
+    # Within 1e-6 of parallel to the floor, about the intersectors' 1e-8
+    # and 1e-6 thresholds: d.y from {0, +-1e-9, +-1e-8, +-1e-7, +-1e-6}.
+    flat = _unit(np.stack([rs.randn(n), np.zeros(n), rs.randn(n)], 1))
+    flat[:, 1] = rs.choice([0.0, 1e-9, -1e-9, 1e-8, -1e-8, 1e-7, -1e-7,
+                            1e-6, -1e-6], n)
+    src = np.stack([rs.uniform(-8, 8, n), rs.choice([0.0, 0.5, 1e-7], n),
+                    rs.uniform(-12, 4, n)], 1)
+    out["stress_grazing"] = (src, flat, lo, INF)
+    # Straight down onto the sphere twins, the floor twins, the ledge over
+    # the disk and the pool on the ground plane.
+    tgt = np.choose(rs.randint(0, 4, n)[:, None], [
+        np.stack([rs.uniform(-0.9, 0.9, n), np.zeros(n),
+                  rs.uniform(-5.9, -4.1, n)], 1),
+        np.stack([rs.uniform(-8, 8, n), np.zeros(n), rs.uniform(0.5, 4, n)],
+                 1),
+        np.stack([rs.uniform(1.0, 3.0, n), np.zeros(n),
+                  rs.uniform(-4.0, -2.0, n)], 1),
+        np.stack([rs.uniform(9.0, 15.0, n), np.zeros(n),
+                  rs.uniform(-11.0, -5.0, n)], 1)])
+    src = tgt + np.array([0.0, 8.0, 0.0])
+    out["stress_ties"] = (src, np.tile([0.0, -1.0, 0.0], (n, 1)), lo, hi)
+    return {k: (np.asarray(o, f32), np.asarray(d, f32), a, b)
+            for k, (o, d, a, b) in out.items()}
+
+
+def prim_stress_tables(scene, extra: int, seed: int = 7):
+    """``scene`` with ``extra`` seeded spheres and as many triangles after
+    its own rows (their materials the scene's first)."""
+    rs = np.random.RandomState(seed)
+    c = rs.uniform((-8, 0, -12), (8, 6, 4), (extra, 3)).astype(np.float32)
+    a = rs.uniform((-8, 0, -12), (8, 6, 4), (extra, 3)).astype(np.float32)
+    e1 = rs.uniform(-0.5, 0.5, (extra, 3)).astype(np.float32)
+    e2 = rs.uniform(-0.5, 0.5, (extra, 3)).astype(np.float32)
+    nrm = np.cross(e1, e2)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    new = {"spheres": dict(center=c, radius=rs.uniform(0.05, 0.3, extra)),
+           "triangles": dict(a=a, e1=e1, e2=e2, n=nrm)}
+    out = {}
+    for name in ("spheres", "triangles"):
+        tb = getattr(scene, name)
+        n0 = int(tb.mask.sum())
+        rows = n0 + extra
+        nb = 1 << (rows - 1).bit_length()
+        cols = {}
+        for f in dataclasses.fields(tb):
+            x = getattr(tb, f.name)[:n0]
+            add = (torch.from_numpy(np.asarray(new[name][f.name],
+                                               np.float32))
+                   if f.name in new[name] else
+                   torch.full((extra,), True) if f.name == "mask" else
+                   torch.zeros((extra,), dtype=x.dtype))
+            x = torch.cat([x, add.to(x.dtype)])
+            pad = torch.zeros((nb - rows, *x.shape[1:]), dtype=x.dtype)
+            cols[f.name] = torch.cat([x, pad]).contiguous()
+        out[name] = dataclasses.replace(tb, **cols)
+    return dataclasses.replace(scene, **out)
+
+
+PRIM_SCENES = ("museum", "cornell", "demo_random", "texture_test",
+               "exhibit_ring_t0", "exhibit_ring_t1.3")
+PRIM_STRESS = ("general", "parked", "inside", "edges", "grazing", "ties")
+
+
+def prim_case_names() -> list:
+    """The names of ``prim_cases``' cases, in its order."""
+    from yetanotherconsolegameengine_tpu_torch.scene.tables import (
+        PRIMITIVE_TABLES)
+    return ([f"{s}_{k}" for s in PRIM_SCENES
+             for k in ("primary", "bounce", "shadow")]
+            + [f"stress_{k}" for k in PRIM_STRESS]
+            + [f"stress_{t}_alone" for t in PRIMITIVE_TABLES]
+            + ["stress_all_empty", "stress_many_rows"])
+
+
+def prim_cases(dev, w: int, h: int) -> dict:
+    """The primitive kernel's inputs, {name: (scene, o, d, tmin, tmax)} on
+    ``dev``, tmin/tmax numbers or (P,) tensors. ``museum``, ``cornell``,
+    ``demo_random``, ``texture_test`` and ``exhibit_ring`` at t = 0 and
+    1.3: primary rays at w x h, bounce rays from their plain hits
+    (``bounce_rays``: per-lane bounds, misses parked at 2.9e30) and shadow
+    rays from the hits to the first light (tmin 1e-3, tmax the distance,
+    misses parked). The stress scene with ``prim_stress_rays``' w * h rays
+    a case; its general rays against each table alone, against seven empty
+    tables, and against spheres and triangles grown by 600 rows each."""
+    from yetanotherconsolegameengine_tpu_torch.scene.tables import (
+        PRIMITIVE_TABLES, SceneBuilder)
+    cases = {}
+    ring = SCENE_BUILDERS["exhibit_ring"]()
+    scenes = [(n, SCENE_BUILDERS[n]()) for n in PRIM_SCENES[:4]]
+    scenes += [(PRIM_SCENES[4], ring.at_time(0.0)),
+               (PRIM_SCENES[5], ring.at_time(1.3))]
+    for name, scene in scenes:
+        scene = scene.to(dev)
+        o, d = primary_rays(scene, w, h)
+        cases[f"{name}_primary"] = (scene, o, d, 1e-3, INF)
+        hit = intersect_primitives(scene, o, d, 1e-3, INF)
+        cases[f"{name}_bounce"] = (scene, *bounce_rays(o, d, hit))
+        p = o + hit.t[:, None] * d
+        to = scene.lights.pos[0] - p
+        dist = torch.sqrt((to * to).sum(1))
+        so = torch.where(hit.hit[:, None], p, 2.9e30).contiguous()
+        cases[f"{name}_shadow"] = (scene, so, (to / dist[:, None])
+                                   .contiguous(), 1e-3, dist)
+    stress = prim_stress_scene()
+    as_dev = lambda x: (torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+                        if isinstance(x, np.ndarray) else x)
+    rays = {k: tuple(as_dev(x) for x in v)
+            for k, v in prim_stress_rays(w * h, 5).items()}
+    assert list(rays) == [f"stress_{k}" for k in PRIM_STRESS]
+    for k, r in rays.items():
+        cases[k] = (stress.to(dev), *r)
+    general = rays["stress_general"]
+    empty = SceneBuilder("empty").build()
+    for keep in PRIMITIVE_TABLES:
+        alone = dataclasses.replace(stress, **{
+            t: getattr(empty, t) for t in PRIMITIVE_TABLES if t != keep})
+        cases[f"stress_{keep}_alone"] = (alone.to(dev), *general)
+    cases["stress_all_empty"] = (dataclasses.replace(stress, **{
+        t: getattr(empty, t) for t in PRIMITIVE_TABLES}).to(dev), *general)
+    cases["stress_many_rows"] = (prim_stress_tables(stress, 600)
+                                     .to(dev), *general)
+    return cases
+
+
 def sweep_kernel_cases(cases, key: str, sweep, launch, grid_args, count,
                        bound) -> dict:
     """Phases 11 and 15 on each case (grid, o, d, tmin, tmax) of
@@ -591,6 +852,67 @@ def sweep_kernel_cases(cases, key: str, sweep, launch, grid_args, count,
         res[name] = dict(err, ms=ms, event_ms=ev, bound_ms=least,
                          bound_by=by, share=least / ms, work=work)
     return res
+
+
+def prim_bound(scene, o, tmin, tmax):
+    """(least ms, bound by) of a primitive sweep of rays ``o`` over
+    ``scene``'s tables: every ray tests every masked-in row
+    (``PRIM_ROW_OPS``), and moves ``PRIM_RAY_BYTES`` and its per-lane
+    bounds; the tables' columns are read once."""
+    P = o.shape[0]
+    ops = P * sum(int(getattr(scene, name).mask.sum()) * n
+                  for name, n in PRIM_ROW_OPS.items())
+    lanes = sum(isinstance(x, torch.Tensor) for x in (tmin, tmax))
+    table = sum(x.numel() * x.element_size()
+                for x in intersect.prim_args(scene, o.device).cols)
+    return roofline(ops, P * (PRIM_RAY_BYTES + 4 * lanes) + table)
+
+
+def prim_phase(dev, card) -> dict:
+    """Phase 25: the primitive kernel (``intersect.sweep_primitives``)
+    against its plain version (``intersect_primitives``) on every
+    primitive sweep of a museum frame at 160x90 (the frame eager, so each
+    of its 27 sweeps is recorded; t, n, u, v, mat and hit bit for bit),
+    then a sweep of 28,800 rays and one of 230,400 (a shadow sweep's
+    lanes) of that frame timed: the kernel's device time (torch.profiler)
+    and its CUDA-event time, the plain loop's CUDA-event time, the bound
+    and the share; then the card tests' cases (``prim_cases`` at 64x48)
+    bit for bit."""
+    scene = SCENE_BUILDERS["museum"]()
+    r = RaytraceRenderer(scene, FB_W, FB_H, device=dev)
+    kernels.reset_launches()
+    calls = record_calls(lambda: r.render_many(1), intersect,
+                         "sweep_primitives")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["prim"] == len(calls) > 0, "prim launches"
+    frame = [bit_contract(out, intersect_primitives(*args))
+             for args, _, out in calls]
+    widths = sorted({args[1].shape[0] for args, _, _ in calls})
+    assert widths == [FB_W * FB_H * 2, FB_W * FB_H * 2 * 8], widths
+    timing = {}
+    for P in widths:
+        args = next(a for a, _, _ in calls if a[1].shape[0] == P)
+        least, by = prim_bound(*args[:2], *args[3:])
+        ms = kernel_ms(lambda: intersect.sweep_primitives(*args), 20)
+        timing[P] = {
+            "ms": ms,
+            "event_ms": cuda_ms(lambda: intersect.sweep_primitives(*args),
+                                20),
+            "plain_ms": cuda_ms(lambda: intersect_primitives(*args), 5),
+            "bound_ms": least, "bound_by": by, "share": least / ms,
+            "tensor_bounds": [isinstance(x, torch.Tensor)
+                              for x in args[3:]]}
+    cases = {name: bit_contract(
+        intersect.sweep_primitives(*case), intersect_primitives(*case))
+        for name, case in prim_cases(dev, 64, 48).items()}
+    print(f"phase 25 {card} primitive kernel vs the plain loop: the "
+          f"{len(frame)} sweeps of a museum {FB_W}x{FB_H} frame (widths "
+          f"{widths}) bit-equal, {sum(f['hits'] for f in frame)} hits; "
+          f"{len(cases)} cases at 64x48 bit-equal; ms per sweep (device "
+          f"time | CUDA events | plain loop by events), bound, share: "
+          f"{json.dumps(timing)}", flush=True)
+    return {"frame": frame, "timing": timing, "cases": cases,
+            "launches": len(calls)}
 
 
 def frame_times(first: int, n: int):
@@ -1688,7 +2010,7 @@ def suite_phase(dev, card, cfg) -> dict:
                   "batched_interactive_fps_k8", "ms_per_frame",
                   "host_ms_per_frame"):
             assert math.isfinite(row[k]) and row[k] > 0, (k, row)
-        want = ["post", "trace"] if fits else ["post"]
+        want = ["post", "trace"] if fits else ["post", "prim"]
         assert row["kernels"] == want, (row, want)
         by_row[label] = launches
     row, _ = captured_row(lambda: bench_suite.bench_lbvh_rebuild(device=dev))
@@ -2205,8 +2527,8 @@ def main() -> int:
         assert int(ok_.rays_traced) == int(op_.rays_traced), name
         mesh_err[name] = {"rgb": float(err), "ansi_flips": flips}
         mesh_runs[name] = timed_frames(RaytraceRenderer(
-            scene, FB_W, FB_H, device=dev), MESH_FRAMES, ("post", "bvh"),
-            warmup=1)
+            scene, FB_W, FB_H, device=dev), MESH_FRAMES,
+            ("post", "bvh", "prim"), warmup=1)
     timed19 = {k: [v["ms"], v["host_ms"], v["launches"]]
                for k, v in mesh_runs.items()}
     print(f"phase 19 {card} small-mesh scenes, card (kernels) vs the CPU "
@@ -2227,6 +2549,9 @@ def main() -> int:
 
     # ---- 24. the suite's rows on the card ---------------------------------
     suite = suite_phase(dev, card, cfg)
+
+    # ---- 25. the primitive kernel ------------------------------------------
+    prim = prim_phase(dev, card)
 
     def sharded(kernel):
         """Launches of ``kernel`` summed over the ranks of each sharded
@@ -2358,6 +2683,19 @@ def main() -> int:
                                          "share", "rays", "hits")}
                    for k, v in {**dda_res,
                                 **dda_run["dda_cases"]}.items()}},
+        {"name": "prim", "route": "cuda",
+         "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
+                   "prim_kernel.cu",
+         "replaces": None, "launches": prim["launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in
+                            [*prim["frame"], *prim["cases"].values()]),
+         **{f: prim["timing"][FB_W * FB_H * 2][f] for f in (
+             "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
+             "share")},
+         "library_ms": None,
+         "launches_by_path": {k: v["launches"]["prim"]
+                              for k, v in mesh_runs.items()},
+         "shadow_sweep": prim["timing"][FB_W * FB_H * 2 * 8]},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,9 +30,9 @@ def test_refuses_to_run_without_a_card(monkeypatch, tmp_path):
 
 def test_kernel_records_count_each_wrapper_launch_once():
     """One record a launch of K2, K1 (either launch), K3 (its epilogue)
-    and the walk and DDA kernels, by the names the profiler reports on the
-    card; other kernels, K3's init and sweep kernels, copies and
-    look-alike names count for none."""
+    and the walk, DDA and primitive kernels, by the names the profiler
+    reports on the card; other kernels, K3's init and sweep kernels,
+    copies and look-alike names count for none."""
     names = [
         "void (anonymous namespace)::trace_kernel(float const*, int const*)",
         "trace_kernel",
@@ -49,12 +49,14 @@ def test_kernel_records_count_each_wrapper_launch_once():
         "(anonymous namespace)::bvh_walk_kernel(float4 const*, int, float "
         "const*)",
         "(anonymous namespace)::dda_march_kernel(short const*, int, int)",
+        "(anonymous namespace)::prim_kernel((anonymous namespace)::Tables, "
+        "int, float const*)",
         "my_trace_kernel(int)", "post_persistent_v2(int)",
-        "bvh_walk_kernel_v2(int)"]
+        "bvh_walk_kernel_v2(int)", "prim_kernel_v2(int)"]
     assert pf.kernel_records(names) == {"trace": 2, "post": 2, "clusters": 1,
-                                        "bvh": 1, "dda": 1}
+                                        "bvh": 1, "dda": 1, "prim": 1}
     assert pf.kernel_records([]) == {"trace": 0, "post": 0, "clusters": 0,
-                                     "bvh": 0, "dda": 0}
+                                     "bvh": 0, "dda": 0, "prim": 0}
 
 
 def test_lost_records_names_the_kernels_short_of_their_launches():
@@ -62,7 +64,7 @@ def test_lost_records_names_the_kernels_short_of_their_launches():
                                  "post_band_tail(int)",
                                  "bvh_walk_kernel(float4 const*)"])
     assert pf.lost_records({"trace": 1, "post": 2, "clusters": 0, "bvh": 1,
-                            "dda": 0}, records) == {}
+                            "dda": 0, "prim": 0}, records) == {}
     assert pf.lost_records({"trace": 3, "post": 2, "clusters": 4, "bvh": 2,
-                            "dda": 5}, records) == {
+                            "dda": 5, "prim": 0}, records) == {
         "trace": (3, 1), "clusters": (4, 0), "bvh": (2, 1), "dda": (5, 0)}

@@ -86,7 +86,8 @@ def test_eight_ranks_match_the_unsharded_frame():
             np.testing.assert_array_equal(r["frames"][k]["fg_ansi"],
                                           got["fg_ansi"])
         assert all(r["launches"][k] == {"trace": 0, "post": 0,
-                                        "clusters": 0, "bvh": 0, "dda": 0}
+                                        "clusters": 0, "bvh": 0, "dda": 0,
+                                        "prim": 0}
                    for r in res)
 
 

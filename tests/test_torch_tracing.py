@@ -100,7 +100,7 @@ def test_reset_clears_the_registry_and_zeroes_launches():
     kernels.reset_launches()
     assert kernels.LAUNCHES is launches
     assert launches == {"trace": 0, "post": 0, "clusters": 0, "bvh": 0,
-                        "dda": 0}
+                        "dda": 0, "prim": 0}
     assert not mesh_bvh.STATS and not dda.STATS
     assert not profiling.SPANS and not profiling.COUNTS
     assert not profiling.SYNCS and not profiling.SYNC_NS
@@ -274,6 +274,7 @@ READERS = {   # metric: (what it reads, per)
     "device.sync_wait_ms": ("sync ns", "frames"),
     "clusters.host_ms": ("clusters.sweep", "frames"),
     "clusters.sweeps": ("counter", "frames"),
+    "wavefront.prim_kernel_share": ("share", None),
 }
 
 
@@ -288,6 +289,8 @@ def test_metric_reader_reads_the_registry(name, monkeypatch):
         profiling.SPANS[span] = [3, 7_000_000, 1_000_000]
     profiling.COUNTS["wavefront.shadow_sweeps"] = 30
     profiling.COUNTS["clusters.sweeps"] = 30
+    profiling.COUNTS["wavefront.prim_kernel_sweeps"] = 30
+    profiling.COUNTS["wavefront.prim_plain_sweeps"] = 10
     profiling.SYNCS.update({"entity.copy_wait": 8, "trace.round_live": 16})
     profiling.SYNC_NS.update({"entity.copy_wait": 2_000_000,
                               "trace.round_live": 6_000_000})
@@ -295,9 +298,10 @@ def test_metric_reader_reads_the_registry(name, monkeypatch):
                         cell=None)
     what, per = READERS[name]
     want = {"counter": 30, "syncs": 24, "sync ns": 8.0}.get(what, 7.0)
+    # A share is 100 x kernel sweeps over all sweeps, not a rate.
+    want = 75.0 if what == "share" else want / (4 if per == "ticks" else 8)
     try:
-        assert reader.read(t) == pytest.approx(
-            want / (4 if per == "ticks" else 8))
+        assert reader.read(t) == pytest.approx(want)
         assert reader.read(SimpleNamespace(
             prof=SimpleNamespace(ticks=0, frames=0), spans=None,
             cell=None)) is None

@@ -18,16 +18,26 @@ zero for the other types), which texture lookup reads.
 its cluster mesh (ops/mesh_clusters.py), each clipped to the primitives'
 nearest hit, and last its voxel grid (ops/dda.py), clipped to the nearest
 hit so far.
+
+On CUDA tensors with ``impl="kernel"`` the seven tables are swept by one
+launch of the primitive kernel (``csrc/prim_kernel.cu``, through
+``sweep_primitives``), which reads the tables as the scene holds them and
+returns the loop's ``Hit`` bit for bit; ``intersect_primitives``, the loop
+over ``INTERSECTORS``, is its plain version, which every ``impl="plain"``
+sweep runs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import weakref
 
 import torch
 
 from ..devices import resolve_impl
 from ..utils import profiling
+from . import kernels
 
 INF = 3.0e38
 
@@ -329,6 +339,125 @@ INTERSECTORS = (("spheres", intersect_spheres), ("boxes", intersect_boxes),
                 ("triangles", intersect_triangles))
 
 
+def intersect_primitives(scene, o, d, tmin, tmax) -> Hit:
+    """Nearest hit over the seven primitive tables: each type's winner,
+    merged in ``INTERSECTORS``' order (the primitive kernel's plain
+    version)."""
+    h = Hit.miss(o)
+    for name, fn in INTERSECTORS:
+        h = merge(h, fn(getattr(scene, name), o, d, tmin, tmax))
+    return h
+
+
+_F, _I, _B = torch.float32, torch.int32, torch.bool
+# The primitive kernel's columns: (field, dtype, values a row) of each
+# table, in INTERSECTORS' order, as csrc/prim_kernel.cu numbers them.
+PRIM_COLUMNS = (
+    ("spheres", (("center", _F, 3), ("radius", _F, 1), ("mat", _I, 1),
+                 ("mask", _B, 1))),
+    ("boxes", (("bmin", _F, 3), ("bmax", _F, 3), ("mat", _I, 1),
+               ("mask", _B, 1))),
+    ("rects", (("axis", _I, 1), ("k", _F, 1), ("u0", _F, 1), ("u1", _F, 1),
+               ("v0", _F, 1), ("v1", _F, 1), ("mat", _I, 1),
+               ("mask", _B, 1))),
+    ("cylinders", (("cx", _F, 1), ("cz", _F, 1), ("radius", _F, 1),
+                   ("ymin", _F, 1), ("ymax", _F, 1), ("capped", _B, 1),
+                   ("mat", _I, 1), ("mask", _B, 1))),
+    ("disks", (("center", _F, 3), ("normal", _F, 3), ("radius", _F, 1),
+               ("mat", _I, 1), ("mask", _B, 1))),
+    ("planes", (("normal", _F, 3), ("d", _F, 1), ("mat", _I, 1),
+                ("mask", _B, 1))),
+    ("triangles", (("a", _F, 3), ("e1", _F, 3), ("e2", _F, 3),
+                   ("n", _F, 3), ("mat", _I, 1), ("mask", _B, 1))),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class PrimArgs:
+    """A scene's tables as the primitive kernel takes them."""
+
+    cols: tuple          # the column tensors, held while pointers are used
+    ptrs: ctypes.Array   # their device pointers, in PRIM_COLUMNS' order
+    rows: ctypes.Array   # each table's padded row count
+
+
+def prim_args(scene, device) -> PrimArgs:
+    """The primitive kernel's arguments for ``scene``'s tables, which must
+    lie on ``device`` with PRIM_COLUMNS' dtypes and shapes (a column that
+    is not contiguous is copied once, here)."""
+    cols, rows = [], []
+    for name, spec in PRIM_COLUMNS:
+        tb = getattr(scene, name)
+        n = tb.mask.shape[0]
+        rows.append(n)
+        for field, dtype, width in spec:
+            x = getattr(tb, field).contiguous()
+            kernels.require(x, f"{name}.{field}", dtype,
+                            (n, width) if width > 1 else (n,))
+            if x.device != device:
+                raise ValueError(f"{name}.{field} is on {x.device}, the "
+                                 f"rays on {device}")
+            cols.append(x)
+    return PrimArgs(
+        cols=tuple(cols),
+        ptrs=(ctypes.c_void_p * len(cols))(*(x.data_ptr() for x in cols)),
+        rows=(ctypes.c_int * len(rows))(*rows))
+
+
+# The last scene the kernel swept, as (a weak reference to it, its device,
+# its PrimArgs): a frame sweeps one scene object many times, so its
+# arguments are built once. A program traces from one thread.
+_PRIM_ARGS = None
+
+
+def _prim_args_of(scene, device) -> PrimArgs:
+    global _PRIM_ARGS
+    hit = _PRIM_ARGS
+    if hit is None or hit[0]() is not scene or hit[1] != device:
+        hit = _PRIM_ARGS = (weakref.ref(scene), device,
+                            prim_args(scene, device))
+    return hit[2]
+
+
+def _bound(v, o):
+    """A sweep's tmin or tmax for the kernel: (a (P,) f32 tensor, 0.0) for
+    a tensor, (None, the number) for a number."""
+    if isinstance(v, torch.Tensor):
+        return _lanes(v, o), 0.0
+    return None, float(v)
+
+
+def sweep_primitives(scene, o, d, tmin, tmax) -> Hit:
+    """Launch the primitive kernel over ``scene``'s seven tables: o/d
+    (P, 3) f32 and the tables on one CUDA device, tmin/tmax a number or
+    (P,). Returns the ``Hit`` of the loop over ``INTERSECTORS`` and
+    ``merge``, bit for bit; an empty batch launches nothing."""
+    P = o.shape[0]
+    o, d = o.contiguous(), d.contiguous()
+    kernels.require(o, "o", torch.float32, (P, 3))
+    kernels.require(d, "d", torch.float32, (P, 3))
+    args = _prim_args_of(scene, o.device)
+    lo, lo_s = _bound(tmin, o)
+    hi, hi_s = _bound(tmax, o)
+    dev = o.device
+    t = torch.empty(P, device=dev)
+    n = torch.empty((P, 3), device=dev)
+    u = torch.empty(P, device=dev)
+    v = torch.empty(P, device=dev)
+    mat = torch.empty(P, dtype=torch.int32, device=dev)
+    hit = torch.empty(P, dtype=torch.bool, device=dev)
+    if P:
+        err = kernels.library().yacge_prim_launch(
+            args.ptrs, args.rows, o.data_ptr(), d.data_ptr(),
+            None if lo is None else lo.data_ptr(), lo_s,
+            None if hi is None else hi.data_ptr(), hi_s, P, t.data_ptr(),
+            n.data_ptr(), u.data_ptr(), v.data_ptr(), mat.data_ptr(),
+            hit.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        kernels.check(err, "primitive kernel")
+        kernels.LAUNCHES["prim"] += 1
+    return Hit(t=t, n=n, u=u, v=v, mat=mat, hit=hit)
+
+
 def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
                     lod: bool = False, fine: bool = False,
                     presort: bool = True, impl=None) -> Hit:
@@ -343,14 +472,18 @@ def intersect_scene(scene, o, d, tmin, tmax, shadow: bool = False,
     ``clusters.sweeps.<full|fine|lod|shadow>``); the proxy sets start at
     ``max(tmin, t_bias)``. ``shadow`` queries run in any-hit mode when
     every mesh material is opaque or the scene's shadows are binary.
-    ``presort`` bins the rays before the sweep; ``impl`` picks the
-    mesh, cluster and voxel sweeps ("kernel": the walk kernel, K3 and the
+    ``presort`` bins the rays before the sweep; ``impl`` picks every
+    sweep ("kernel": the primitive kernel, the walk kernel, K3 and the
     DDA kernel; "plain": their plain versions; None: from the rays'
-    device)."""
+    device). Each call counts under ``wavefront.prim_kernel_sweeps`` or
+    ``wavefront.prim_plain_sweeps`` by the primitive pass it took."""
     impl = resolve_impl(impl, o.device)
-    h = Hit.miss(o)
-    for name, fn in INTERSECTORS:
-        h = merge(h, fn(getattr(scene, name), o, d, tmin, tmax))
+    if impl == "kernel":
+        profiling.count("wavefront.prim_kernel_sweeps")
+        h = sweep_primitives(scene, o, d, tmin, tmax)
+    else:
+        profiling.count("wavefront.prim_plain_sweeps")
+        h = intersect_primitives(scene, o, d, tmin, tmax)
     mc = scene.mesh_clusters
     if scene.mesh is None and mc is None and scene.voxels is None:
         return h

@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # kernel, so a run can show the main path went through the kernels.
 LAUNCHES = profiling.register(
     "kernels.launches",
-    {"trace": 0, "post": 0, "clusters": 0, "bvh": 0, "dda": 0})
+    {"trace": 0, "post": 0, "clusters": 0, "bvh": 0, "dda": 0, "prim": 0})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +59,8 @@ _SIGNATURES = {
     "yacge_bvh_limits": ([_I, _P], _I),
     "yacge_dda_launch": ([_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                           _P, _P, _P, _P, _P], _I),
+    "yacge_prim_launch": ([_P, _P, _P, _P, _P, _F, _P, _F, _I, _P, _P, _P,
+                           _P, _P, _P, _P], _I),
 }
 
 

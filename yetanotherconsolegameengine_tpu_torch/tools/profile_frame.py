@@ -32,7 +32,7 @@ with the kernels (``impl="kernel"``) after three warm-up frames:
    innermost stage that encloses each operation, device kernels and
    copies per frame, and the host time inside each stage. The profiler
    can lose the records of launches made back to back, so the records of
-   K1, K2, K3 and the walk and DDA kernels are counted against the
+   K1, K2, K3, the walk, DDA and primitive kernels are counted against the
    launches their wrappers counted (``kernels.LAUNCHES``); a pass that
    lost any is profiled again, frame by frame with a synchronise after
    each, up to ``TRIES`` passes in all. If every pass lost records, no
@@ -104,13 +104,14 @@ ROW_BYTES = 240
 CELL_BYTES = 2
 # The device kernels of which each launch counted in ``kernels.LAUNCHES``
 # runs exactly one (ops/csrc): K2's kernel, K1's cooperative kernel or its
-# band launch B, and K3's epilogue (its sweep is skipped when no list has
-# an entry).
+# band launch B, K3's epilogue (its sweep is skipped when no list has an
+# entry), the walk, the DDA and the primitive kernel.
 KERNEL_RECORDS = {"trace": ("trace_kernel",),
                   "post": ("post_persistent", "post_band_tail"),
                   "clusters": ("epilogue_kernel",),
                   "bvh": ("bvh_walk_kernel",),
-                  "dda": ("dda_march_kernel",)}
+                  "dda": ("dda_march_kernel",),
+                  "prim": ("prim_kernel",)}
 TRIES = 3
 
 
