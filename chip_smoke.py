@@ -208,8 +208,6 @@ from yetanotherconsolegameengine_tpu_torch.scene.builders import SCENE_BUILDERS
 from yetanotherconsolegameengine_tpu_torch.scene.mesh_loader import make_knot
 from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import (
     FORCED_SCENE_BUILDERS)
-from yetanotherconsolegameengine_tpu_torch.tools.profile_frame import (
-    TRIES, cuda_ms, dda_bound, device_ms, k3_work, roofline, walk_bound)
 from yetanotherconsolegameengine_tpu_torch.utils.profiling import timed
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -249,7 +247,7 @@ N_LIGHTS = 10                   # above the JAX megakernel's limit of 8
 # 12 min/max) and per K1 pixel and stage: the TAA 3x3 clamp ~100, a 5x5
 # a-trous pass of 25 taps x ~30, the exposure sample's luma and log ~10,
 # the tail (ACES, gamma, saturation, ANSI-256) ~50. Least times follow
-# tools/profile_frame.py::roofline (K3's work: k3_work there).
+# ``roofline`` (K3's work: ``k3_work``).
 K2_OPS = 24
 K1_TAA_OPS, K1_PASS_OPS, K1_LOG_OPS, K1_TAIL_OPS = 100, 750, 10, 50
 # Of the TAA's ~100, 3 per tap of the 3x3 clamp window (the sky test, the
@@ -274,6 +272,35 @@ K1_PLANES = 11 + 5 + 3 + 7
 PRIM_ROW_OPS = {"spheres": 27, "boxes": 29, "rects": 15, "cylinders": 60,
                 "disks": 35, "planes": 17, "triangles": 56}
 PRIM_RAY_BYTES = 24 + 29
+# Least-time model (H100 SXM data sheet at 700 W: fp32 outside the tensor
+# cores, HBM3): bound = max(operations / PEAK_FLOPS, bytes / PEAK_BYTES).
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 operations per K3 lane-test: six 3-term dot products (18 mul, 15
+# add), the division, u and v (2 mul, 2 add), 1-u-v (2 sub).
+K3_OPS = 40
+# Operations of the walk kernel per node visit (the slab test: 6 sub, 6
+# mul, 6 min/max, 4 in the two reductions, 3 compares) and per triangle
+# test (Moller-Trumbore: two cross products 18, four dot products 20 with
+# their 3 scalings, the guarded 1/det 3, o - a 3, 10 compares and u + v);
+# of the DDA kernel per round (t + eps 1, the point 6, the cell 9 with its
+# division and floor, its clamps and bounds 10, the three boundaries 15
+# with their int adds, the parallel-axis selects 3, the minimum 2, the
+# distance jump 4, the two maxima 2). Integer work is counted beside the
+# fp32 work against the fp32 peak.
+WALK_SLAB_OPS = 25
+WALK_TRI_OPS = 57
+DDA_ROUND_OPS = 52
+# Bytes a sweep must move per ray: o, d, tmin and tmax in (32); out t, n,
+# u, v, mat and hit (29) for the walk, and the same for the DDA (its u and
+# v one zero plane: 25); and once each row (240 bytes) or cell (2 bytes)
+# that the rays read.
+WALK_RAY_BYTES = 32 + 29
+DDA_RAY_BYTES = 32 + 25
+ROW_BYTES = 240
+CELL_BYTES = 2
+# Profiled passes ``kernel_ms`` makes before it falls back to CUDA events.
+TRIES = 3
 
 
 def k1_ops(cfg) -> int:
@@ -343,6 +370,90 @@ def trace_inputs(scene, w: int, h: int, frame: int, dev):
     params = ray_params(scene.default_pose, w, h, frame)[None]
     return (params.contiguous(),
             torch.tensor([frame], dtype=torch.int32, device=dev))
+
+
+def roofline(ops: float, nbytes: float):
+    """(least ms, "operations" or "bytes") for work of ``ops`` fp32
+    operations moving ``nbytes``."""
+    t_ops = ops / PEAK_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k3_work(args, ref) -> dict:
+    """What one K3 sweep must do on these inputs, and its least time on the
+    card. ``ref``: ``trace_tiles_plain``'s result. A ray must test every
+    listed entry whose key is not above its final key (the plain winner's
+    key, or key(tinit) without a hit): no other entry can hold its winner.
+    Each lane-test is K3_OPS fp32 operations; the bytes are each input
+    read once and each output written once."""
+    lens, ids, entry_t, gmat, rays, _, qmask = args
+    n_tiles, C = ids.shape
+    kc = gmat.shape[2]
+    key = cluster_kernel.key_of
+    final = torch.where(ref[1] >= 0, key(ref[0], qmask),
+                        key(rays[:, 7].contiguous(), qmask))
+    fk = final.view(n_tiles, -1, 1)
+    ek = key(entry_t, qmask).view(n_tiles, 1, C)
+    listed = torch.arange(C, device=ids.device)[None] < lens[:, None]
+    tests = 0
+    for i in range(n_tiles):   # per tile: (256, C) booleans
+        tests += int(((ek[i] <= fk[i]) & listed[i, None]).sum()) * kc
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (lens, ids, entry_t, gmat, rays))
+    nbytes += rays.shape[0] * 8 + n_tiles * 4
+    bound, by = roofline(tests * K3_OPS, nbytes)
+    return {"tiles": n_tiles, "lane_tests": tests, "bytes": nbytes,
+            "bound_ms": bound, "bound_by": by}
+
+
+def walk_bound(work: dict, rays: int):
+    """(least ms, bound by) of a walk sweep whose work ``mesh_bvh.walk_work``
+    counted on ``rays`` rays."""
+    return roofline(work["visits"] * WALK_SLAB_OPS
+                    + work["tri_tests"] * WALK_TRI_OPS,
+                    rays * WALK_RAY_BYTES + work["rows"] * ROW_BYTES)
+
+
+def dda_bound(work: dict, rays: int):
+    """(least ms, bound by) of a DDA sweep whose work ``dda.march_work``
+    counted on ``rays`` rays."""
+    return roofline(work["rounds"] * DDA_ROUND_OPS,
+                    rays * DDA_RAY_BYTES + work["cells"] * CELL_BYTES)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+
+    def calls():
+        for _ in range(reps):
+            fn()
+    return timed(calls, reps, "cuda")[0]
+
+
+def device_ms(fn, reps: int, warmup: int = 3):
+    """(mean device ms, device operations) per call of ``fn`` over ``reps``
+    calls: the summed durations of the device operations the calls ran,
+    from ``torch.profiler``. Unlike ``cuda_ms`` it leaves out the gaps in
+    which the device waits for the host to enqueue the next call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host_names = {ev.name for ev in events
+                  if ev.device_type != DeviceType.CUDA}
+    ops = [ev.time_range.end - ev.time_range.start for ev in events
+           if ev.device_type == DeviceType.CUDA and ev.name not in host_names]
+    return sum(ops) / 1e3 / reps, len(ops) / reps
 
 
 def kernel_ms(fn, reps: int, launches: int = 1) -> float:

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import real_blockers, sweep_contract
+from chip_smoke import k3_work, real_blockers, sweep_contract
 from yetanotherconsolegameengine_tpu_torch.ops import cluster_kernel as ck
 from yetanotherconsolegameengine_tpu_torch.ops import mesh_clusters as pmc
 from yetanotherconsolegameengine_tpu_torch.render.renderer import (
@@ -22,7 +22,6 @@ from yetanotherconsolegameengine_tpu_torch.scene.mesh_loader import (
     make_icosphere)
 from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import (
     FORCED_SCENE_BUILDERS)
-from yetanotherconsolegameengine_tpu_torch.tools.profile_frame import k3_work
 
 # The suite runs several xdist workers beside JAX's own thread pools;
 # torch's per-process intra-op pool would oversubscribe the cores.
@@ -253,3 +252,61 @@ def test_card_contract_and_least_work_on_a_frame_sweep():
         bad[int(torch.nonzero(bad >= 0)[0, 0])] += 1
         with pytest.raises(AssertionError):
             sweep_contract((ref[0], bad, ref[2]), ref, args)
+
+
+def _hand_sweep(case):
+    """One tile of 256 rays from z = 3 against a unit icosphere in 5
+    clusters of 16 triangles. "hit": rays toward the sphere, a tinit of 10
+    and the last entry at t = 9, past every hit; "miss": rays away from it
+    under a tinit of 3, entries at t = 0.5 to 5, one of them at 3;
+    "short": a list of 2 of the 5 clusters, its padding entered at t = 0."""
+    tris = make_icosphere(1)
+    mc = pmc.build_clusters(tris[:, 0], tris[:, 1], tris[:, 2],
+                            np.zeros(len(tris), np.int32), kc=16)
+    C = mc.n_clusters
+    rng = np.random.RandomState(3)
+    xy = rng.uniform(-0.5, 0.5, (256, 2)).astype(np.float32)
+    o = np.concatenate([xy, np.full((256, 1), 3.0, np.float32)], 1)
+    d = np.float32([0, 0, -1 if case == "hit" else 1]) * np.ones((256, 1),
+                                                                np.float32)
+    tinit = {"hit": 10.0, "miss": 3.0, "short": 10.0}[case]
+    rays = np.concatenate([o, d, np.full((256, 1), 1e-3, np.float32),
+                           np.full((256, 1), tinit, np.float32)], 1)
+    entry = {"hit": [0.0, 0.0, 0.0, 0.0, 9.0],
+             "miss": [0.5, 1.0, 3.0, 3.5, 5.0],
+             "short": [0.5, 1.0, 0.0, 0.0, 0.0]}[case]
+    lens = 2 if case == "short" else C
+    t = torch.from_numpy
+    return (torch.tensor([lens], dtype=torch.int32),
+            t(rng.permutation(C).astype(np.int32)[None]),
+            torch.tensor([entry], dtype=torch.float32), mc.gmat,
+            t(np.ascontiguousarray(rays, np.float32)), False,
+            {"hit": 0, "miss": 2047, "short": 0}[case])
+
+
+@pytest.mark.parametrize("case", ["hit", "miss", "short"])
+def test_k3_least_work_equals_a_brute_force_count(case):
+    """``k3_work`` counts, for each ray, kc lane-tests of every listed
+    entry whose key is at most the ray's final key (the plain winner's, or
+    key(tinit) without a hit), and never a padding entry; its bytes are
+    each input read once and each output written once."""
+    args = _hand_sweep(case)
+    lens, ids, entry_t, gmat, rays, _, qmask = args
+    C, kc = ids.shape[1], gmat.shape[2]
+    assert C == 5 and kc == 16
+    ref = ck.trace_tiles_plain(*args)
+    hit = ref[1] >= 0
+    final = [ck.key_of(ref[0][i:i + 1] if hit[i] else rays[i, 7:8],
+                       qmask).item() for i in range(256)]
+    keys = ck.key_of(entry_t[0], qmask).tolist()
+    tests = sum(kc for i in range(256) for e in range(int(lens[0]))
+                if keys[e] <= final[i])
+    work = k3_work(args, ref)
+    assert work["lane_tests"] == tests
+    assert work["bytes"] == 4 * (1 + 2 * C + 12 * C * kc + 8 * 256) \
+        + 8 * 256 + 4
+    if case == "hit":
+        assert bool(hit.all()) and 0 < tests < 256 * C * kc
+    else:
+        assert not bool(hit.any())
+        assert tests == 256 * {"miss": 3, "short": 2}[case] * kc

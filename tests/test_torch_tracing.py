@@ -12,13 +12,17 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from yetanotherconsolegameengine_tpu_torch.engine.chexel import Framebuffer
+from yetanotherconsolegameengine_tpu_torch.engine.entity import BaseEntity
+from yetanotherconsolegameengine_tpu_torch.engine.raytrace_entity import (
+    RaytraceComponent)
+from yetanotherconsolegameengine_tpu_torch.engine.terminal import Terminal
 from yetanotherconsolegameengine_tpu_torch.ops import (dda, kernels,
                                                        mesh_bvh, trace)
 from yetanotherconsolegameengine_tpu_torch.render.renderer import \
     RaytraceRenderer
 from yetanotherconsolegameengine_tpu_torch.scene.materials import Material
 from yetanotherconsolegameengine_tpu_torch.scene.tables import SceneBuilder
-from yetanotherconsolegameengine_tpu_torch.tools import sync_sites
 from yetanotherconsolegameengine_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -122,11 +126,30 @@ class _NoKeys:
         return False
 
 
+def _program(scene: str, w: int, h: int, batch: int):
+    """What ``engine/program.py --size WxH --no-world --non-interactive
+    --device cpu`` builds, its frames written to ``os.devnull``: (the
+    terminal, its ray-trace component, the open descriptor)."""
+    out_fd = os.open(os.devnull, os.O_WRONLY)
+    term = Terminal(backend="ansi", interactive=False, out_fd=out_fd)
+    term.renderer.console_size = lambda: (w, h + 1)
+    term.renderer.remove_framebuffer(term.fb)
+    term.fb = Framebuffer(w, h)
+    term.renderer.add_framebuffer(term.fb)
+    term.fixed_size = True
+    entity = BaseEntity()
+    rt = RaytraceComponent(term.fb, start_scene=scene, enable_world=False,
+                           batch=batch, device="cpu")
+    entity.add_component(rt)
+    term.add_entity(entity)
+    return term, rt, out_fd
+
+
 @pytest.mark.parametrize("batch,ticks", [(1, 3), (2, 4)])
 def test_cornell_ticks_record_each_span_once(batch, ticks):
     """The program's tick on a tiny Cornell box: each span once a tick, a
     call or a frame, the sync sites counted."""
-    term, rt, out_fd = sync_sites.build("cornell", 12, 6, batch, "cpu")
+    term, rt, out_fd = _program("cornell", 12, 6, batch)
     term.input = _NoKeys()
     dt = 1.0 / 30.0
     try:
@@ -405,17 +428,3 @@ def test_device_trace_writes_into_a_fresh_directory_by_default(tmp_path):
     with profiling.device_trace(str(tmp_path)) as d:
         pass
     assert d == str(tmp_path) and (tmp_path / "trace.json").is_file()
-
-
-def test_sync_sites_tool_reports_spans_and_sites(tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    assert sync_sites.main(["--scene", "cornell", "--size", "12x6",
-                            "--warmup", "2", "--ticks", "2",
-                            "--device", "cpu"]) == 0
-    text = (tmp_path / "chiprun_out" / "sync_sites_cornell_b1.txt") \
-        .read_text()
-    assert "2 ticks, 2 frames profiled" in text
-    for name in ("tick ", "render.call", "present.encode",
-                 "renderer.pose_upload", "wavefront.shadow_sweeps"):
-        assert name in text, name
-    assert sync_sites.copy_sites([]) == {}

@@ -150,17 +150,21 @@ def _box(h, o, inv, t_lo, t):
     return bool(t0 <= t1 and t1 >= t_lo and t0 <= t)
 
 
-def walk_group(heads, staged, tris, o, d, t_lo, t_hi, lanes=4):
-    """csrc/bvh_kernel.cu's lane group on one ray: ``lanes`` lanes, each
+# Threads a ray in csrc/bvh_kernel.cu (its kLanes).
+LANES = 4
+
+
+def walk_group(heads, staged, tris, o, d, t_lo, t_hi):
+    """csrc/bvh_kernel.cu's lane group on one ray: ``LANES`` lanes, each
     with its own registers. Headers of nodes below ``len(staged)`` come
     from ``staged`` (the block's shared-memory copy), the rest from
     ``heads``. At a leaf whose box is hit, lane l tests triangles l,
-    l + lanes, ... (a serial first-of-equal-minima scan), the lanes
+    l + LANES, ... (a serial first-of-equal-minima scan), the lanes
     exchange (tk, k) by xor shuffles, and the winner's u, v, n and mat come
     from its lane. Returns (t, n, u, v, mat, hit, visits, headers read
     from ``heads``); every lane ends in the same state."""
     inv = [_inv(x) for x in d]
-    L = range(lanes)
+    L = range(LANES)
     reg = [dict(t=t_hi, n=(F(0),) * 3, wm=F(0), u=F(0), v=F(0)) for _ in L]
     node = visits = from_table = 0
     while node < len(heads) and visits < len(heads):
@@ -177,8 +181,8 @@ def walk_group(heads, staged, tris, o, d, t_lo, t_hi, lanes=4):
             own = []                   # each lane's (best, k, u, v, n, mat)
             for k in L:
                 best = None
-                for j in range(mesh_bvh.LEAF_K // lanes):
-                    kt = k + j * lanes
+                for j in range(mesh_bvh.LEAF_K // LANES):
+                    kt = k + j * LANES
                     rec = tris[node, kt]
                     tt, u, v, ok = _mt(rec, o, d)
                     tk = tt if (F(kt) < h[7] and ok and tt >= t_lo
@@ -188,14 +192,14 @@ def walk_group(heads, staged, tris, o, d, t_lo, t_hi, lanes=4):
                 own.append(best)
             key = [b[:2] for b in own]
             off = 1
-            while off < lanes:         # __shfl_xor_sync over the group
+            while off < LANES:         # __shfl_xor_sync over the group
                 key = [min_key(key[k], key[k ^ off]) for k in L]
                 off *= 2
             assert len(set(key)) == 1
             best, kk = key[0]
             for k in L:
                 if best < reg[k]["t"]:
-                    _, _, u, v, n, m = own[kk % lanes]   # __shfl_sync
+                    _, _, u, v, n, m = own[kk % LANES]   # __shfl_sync
                     reg[k] = dict(t=best, u=u, v=v, n=n, wm=m)
         else:
             for k in L:
@@ -331,13 +335,13 @@ def walk_model(bvh, o, d, tmin, tmax):
                 for i in range(len(o))]
 
 
-def group_model(bvh, o, d, tmin, tmax, n_shared=None, lanes=4):
+def group_model(bvh, o, d, tmin, tmax, n_shared=None):
     heads, tris = bvh.heads.numpy(), bvh.tris.numpy()
     staged = heads[:len(heads) if n_shared is None else n_shared].copy()
     lo, hi = _lanes(tmin, len(o)), _lanes(tmax, len(o))
     with np.errstate(over="ignore", invalid="ignore"):
         return [walk_group(heads, staged, tris, o[i].numpy(), d[i].numpy(),
-                           lo[i], hi[i], lanes) for i in range(len(o))]
+                           lo[i], hi[i]) for i in range(len(o))]
 
 
 def march_model(w, o, d, tmin, tmax, log=None):
@@ -511,12 +515,12 @@ def test_a_rebuilt_tree_packs_its_own_heads_and_tris():
 
 def test_walk_kernel_layout_constants_match_the_source():
     """The wrapper's layout and the kernel's: header and record sizes,
-    triangles a leaf; the default four lanes a ray."""
+    triangles a leaf; four lanes a ray."""
     src = (CSRC / "bvh_kernel.cu").read_text()
     for expr in (f"constexpr int kLeafK = {mesh_bvh.LEAF_K};",
                  f"constexpr int kHead4 = {mesh_bvh.HEAD_F // 4};",
                  f"constexpr int kTri4 = {mesh_bvh.TRI_F // 4};",
-                 "#define YACGE_BVH_LANES 4",
+                 f"constexpr int kLanes = {LANES};",
                  "constexpr int kThreads = kBlockRays * kLanes;",
                  "constexpr int kWarpRays = 32 / kLanes;"):
         assert expr in src, expr
@@ -525,7 +529,7 @@ def test_walk_kernel_layout_constants_match_the_source():
 # An H100 as yacge_bvh_limits reports it: 232,448 bytes of shared memory a
 # block may opt in to, 132 SMs, one block of 1,024 threads an SM (the
 # registers allow no second), four lanes a ray.
-H100 = {"sms": 132, "threads": 1024, "lanes": 4}
+H100 = {"sms": 132, "threads": 1024, "lanes": LANES}
 
 
 def _h100_limits(lib, device, smem):
@@ -694,15 +698,6 @@ def test_lane_group_model_equals_the_plain_walk(case, n_shared):
         # Rays that miss take INF at the leaf (hit, as INF < inf).
         t = np.float32([m[0] for m in model])
         assert bvh.n_nodes == 1 and 0 < (t == KINF).sum() < len(t)
-
-
-@pytest.mark.parametrize("lanes", [1, 2])
-def test_lane_group_model_with_fewer_lanes(lanes):
-    """The kernel built with one or two lanes a ray (tools/walk_ladder.py's
-    steps): each lane scans its triangles serially, the same winners."""
-    args = _walk_inputs()["knot_bounds"]
-    model = group_model(*args, lanes=lanes)
-    _same_bits(model, mesh_bvh.intersect_mesh(*args), WALK_FIELDS)
 
 
 def _dda_inputs():

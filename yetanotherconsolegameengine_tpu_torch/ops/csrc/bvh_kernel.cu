@@ -35,11 +35,11 @@
 // ~33 node visits on the bunny's LBVH (up to ~500), each ~25 fp32
 // operations on a 32-byte header plus ~57 per triangle test at a leaf whose
 // box is hit; the least time for the bunny's 28,800 primary rays is ~1.5 us
-// (tools/profile_frame.py::walk_bound). Each visit depends on the one
-// before, so the walk is bound by the latency of its loads and its
-// dependent arithmetic (the slab test's min/max chain, the IEEE divisions
-// of the triangle tests, the group's shuffles) and by divergence: a warp
-// runs as long as its longest ray, and rays end after 1 to ~500 visits.
+// (chip_smoke.py::walk_bound). Each visit depends on the one before, so the
+// walk is bound by the latency of its loads and its dependent arithmetic
+// (the slab test's min/max chain, the IEEE divisions of the triangle
+// tests, the group's shuffles) and by divergence: a warp runs as long as
+// its longest ray, and rays end after 1 to ~500 visits.
 // What the design does about each:
 //
 // - Four lanes a ray (kLanes). The group's lanes all run the box test on
@@ -74,30 +74,21 @@
 // possible next headers ahead of the box test, testing a leaf's triangles
 // before its box test is known, a ballot that skips the shuffles at a
 // leaf with no candidate, and blocks of 256 or 512 threads.
-//
-// YACGE_BVH_LANES (1, 2 or 4; 4 unless the build says otherwise) sets the
-// lanes a ray; tools/walk_ladder.py builds 1 to time the design's steps.
 
 #include <cuda_runtime.h>
-
-#ifndef YACGE_BVH_LANES
-#define YACGE_BVH_LANES 4
-#endif
 
 namespace {
 
 constexpr int kLeafK = 4;                 // triangles per leaf
 constexpr int kHead4 = 2;                 // float4s a node header
 constexpr int kTri4 = 4;                  // float4s a triangle record
-constexpr int kLanes = YACGE_BVH_LANES;   // threads a ray
+constexpr int kLanes = 4;                 // threads a ray
 constexpr int kBlockRays = 256;           // rays a block walks at a time
 constexpr int kThreads = kBlockRays * kLanes;
 constexpr int kWarps = kThreads / 32;
 constexpr int kWarpRays = 32 / kLanes;    // rays a warp walks at a time
 constexpr float kInf = 3.0e38f;           // ops/intersect.py INF
 constexpr unsigned kGroupBits = (1u << kLanes) - 1u;
-static_assert(kLanes == 1 || kLanes == 2 || kLanes == 4,
-              "a lane group is 1, 2 or 4 threads");
 static_assert(kLeafK % kLanes == 0, "each lane tests whole triangles");
 
 // NaN if either operand is NaN, as torch.minimum / torch.maximum (one
@@ -153,12 +144,6 @@ __device__ __forceinline__ Tri moller_trumbore(float4 q0, float4 q1, float4 q2,
   r.ok = fabsf(det) >= 1e-8f && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
          u + v <= 1.0f;
   return r;
-}
-
-// x from lane `src` of the group `group` (a no-op for one lane a ray).
-__device__ __forceinline__ float from_lane(unsigned group, float x, int src) {
-  if constexpr (kLanes > 1) return __shfl_sync(group, x, src);
-  return x;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -272,12 +257,12 @@ bvh_walk_kernel(const float4* __restrict__ heads,
         if (best < t) {
           const int src = first | (kk & (kLanes - 1));
           t = best;
-          bu = from_lane(group, cu, src);
-          bv = from_lane(group, cv, src);
-          nx = from_lane(group, wx, src);
-          ny = from_lane(group, wy, src);
-          nz = from_lane(group, wz, src);
-          wm = from_lane(group, wmat, src);
+          bu = __shfl_sync(group, cu, src);
+          bv = __shfl_sync(group, cv, src);
+          nx = __shfl_sync(group, wx, src);
+          ny = __shfl_sync(group, wy, src);
+          nz = __shfl_sync(group, wz, src);
+          wm = __shfl_sync(group, wmat, src);
         }
       } else if (kInf < t) {
         // No candidate: the plain walk's row minimum is INF, which still

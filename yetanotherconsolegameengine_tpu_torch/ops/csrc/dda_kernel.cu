@@ -30,11 +30,11 @@
 // What bounds it on this card: not bytes (a sweep reads a few hundred
 // distinct cells and 57 bytes a ray) nor operations, but the longest ray's
 // chain of dependent rounds: the 8 rays with the most rounds, alone on the
-// card, take about as long as the whole sweep (tools/dda_ladder.py). A
-// round is ~30 dependent operations from t to the cell's address and from
-// the cell's value to the next t, and one cell read (an L1 hit on a small
-// grid, L2 on the island's); a sweep of 28,800 rays is ~7 warps an SM, too
-// few to hide a round's latency behind another warp.
+// card, take about as long as the whole sweep. A round is ~30 dependent
+// operations from t to the cell's address and from the cell's value to the
+// next t, and one cell read (an L1 hit on a small grid, L2 on the
+// island's); a sweep of 28,800 rays is ~7 warps an SM, too few to hide a
+// round's latency behind another warp.
 //
 // The shorter round, the port's design. The linear cell index is 32-bit
 // (dda.march refuses a grid of 2^31 cells or more). When h is a power of
@@ -59,8 +59,7 @@
 // Reading cells ahead along a grazing ray's jump-0 rounds was tried and
 // measured slower on this card at every batch size from 2 to 8: a batch's
 // rounds are still computed one after another, and on the port's grids
-// the arithmetic, not the cell read, is most of a round. That variant is
-// built by tools/dda_ladder.py only (tools/csrc/dda_read_ahead.cu).
+// the arithmetic, not the cell read, is most of a round.
 
 #include <cuda_runtime.h>
 
