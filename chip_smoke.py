@@ -26,7 +26,12 @@ Phases (one line each; any failure raises and exits non-zero):
      primary rays, the shadow set's light-major any-hit shadow rays, the
      LOD set's bounce rays), then the same primary rays on the full
      598k-triangle set; nearest mode: winners and t bit-equal; any-hit
-     mode: equal hit masks and every winner a real blocker
+     mode: equal hit masks and every winner a real blocker; (7b) the cull
+     and resolve kernels (``ops/csrc/cluster_glue.cu``) against their
+     torch twin on the same sweeps and on ``glue_cases``: K3's inputs and
+     the Hit bit for bit, then each sweep's cull and resolve timed without
+     K3 (device time and CUDA events, the twin by events) beside its least
+     time
   8. the cluster goldens (cluster_forced, fine_forced) on the card (48x28
      cells, 4 frames, kernels)
   9. the dragon at 240x135 cells, ss=1: kernel vs plain renderer over 4
@@ -198,6 +203,7 @@ from yetanotherconsolegameengine_tpu_torch.core.camera import (
 from yetanotherconsolegameengine_tpu_torch.ops import (cluster_kernel, dda,
                                                        intersect, kernels,
                                                        lbvh, mesh_bvh,
+                                                       mesh_clusters,
                                                        post_kernel)
 from yetanotherconsolegameengine_tpu_torch.ops import trace_kernel
 from yetanotherconsolegameengine_tpu_torch.ops.intersect import (
@@ -205,7 +211,8 @@ from yetanotherconsolegameengine_tpu_torch.ops.intersect import (
 from yetanotherconsolegameengine_tpu_torch.render.renderer import (
     RaytraceRenderer, trace_wavefront_planes)
 from yetanotherconsolegameengine_tpu_torch.scene.builders import SCENE_BUILDERS
-from yetanotherconsolegameengine_tpu_torch.scene.mesh_loader import make_knot
+from yetanotherconsolegameengine_tpu_torch.scene.mesh_loader import (
+    make_dragon, make_knot, transform_mesh)
 from yetanotherconsolegameengine_tpu_torch.scene.mesh_scenes import (
     FORCED_SCENE_BUILDERS)
 from yetanotherconsolegameengine_tpu_torch.utils.profiling import timed
@@ -301,6 +308,19 @@ ROW_BYTES = 240
 CELL_BYTES = 2
 # Profiled passes ``kernel_ms`` makes before it falls back to CUDA events.
 TRIES = 3
+# Bytes the cull and resolve kernels of a cluster sweep must move: per ray
+# o and d in (24), the Hit out (29) and 4 for each bound given per lane;
+# per padded lane K3's ray row out (32) and its two winner words back (8);
+# per entry K3 reads of a tile's list (id and entry t, 8) and per tile its
+# length (4); each cluster box in once (24); per hit of a nearest sweep
+# its triangle row (64). The cull writes each tile's whole list, the
+# clusters out of reach after the rest, but K3 reads only the first
+# ``lens`` entries, so only those count.
+GLUE_RAY_BYTES = 24 + 29
+GLUE_LANE_BYTES = 32 + 8
+GLUE_ENTRY_BYTES = 8
+GLUE_BOX_BYTES = 24
+GLUE_ROW_BYTES = 64
 
 
 def k1_ops(cfg) -> int:
@@ -1026,6 +1046,306 @@ def prim_phase(dev, card) -> dict:
             "launches": len(calls)}
 
 
+def glue_case_names() -> list:
+    """The names of ``glue_cases``' cases, in its order."""
+    return ["kc256_nearest", "kc256_nearest_unsorted_lanes",
+            "kc256_any_hit_lanes", "kc512_bias_nearest",
+            "kc512_bias_any_hit_unsorted", "kc512_inf_scalar",
+            "kc256_grazing_edges", "kc256_zero_windows",
+            "many_clusters_nearest", "many_clusters_any_hit_unsorted",
+            "no_rays"]
+
+
+def glue_rays(bounds, n: int, seed: int):
+    """n rays (numpy o, d) at a mesh of box ``bounds`` (2, 3): from a
+    sphere round it at points of the box, a quarter from inside the box
+    in any direction; lanes 0 mod 17 parked at 2.9e30, and lanes with
+    zero and -0 direction components, a NaN origin, a NaN and an infinite
+    direction, one starting past the box pointing away."""
+    rng = np.random.RandomState(seed)
+    lo, hi = (np.asarray(x, np.float64) for x in bounds)
+    c, ext = (lo + hi) / 2, hi - lo
+    r = float(np.linalg.norm(ext))
+    u = rng.normal(size=(n, 3))
+    o = c + u / np.linalg.norm(u, axis=1, keepdims=True) * r
+    d = lo + rng.uniform(size=(n, 3)) * ext - o
+    q = n // 4
+    o[:q] = lo + rng.uniform(size=(q, 3)) * ext
+    d[:q] = rng.normal(size=(q, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o[::17] = 2.9e30
+    if n > 12:
+        o[5:7] = c + [0.01, 0.02, r]
+        d[5] = [0.0, 0.0, -1.0]
+        d[6] = [-0.0, 0.0, -1.0]
+        o[8, 1] = np.nan
+        d[9, 0] = np.nan
+        o[10], d[10] = c, [np.inf, 0.0, 0.0]
+        o[11], d[11] = c + [2 * r, 0.0, 0.0], [1.0, 0.0, 0.0]
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def glue_edge_rays(mc, copies: int = 64):
+    """``copies`` equal rays a cluster of ``mc`` (in the caller's order, a
+    sub-bundle each at 64) that pass its box's edge at max x, min y, at
+    its middle, along (1, 1, 0) / sqrt(2), from 1 before it: cluster i's
+    ray moved off the box by (i mod 4) * 6.25e-5, so the box's y interval
+    starts 0, 1.25e-4, 2.5e-4 or 3.75e-4 after its x interval ends, about
+    the cull's slack (2e-4 at t = 1); at 0 rounding leaves a few ulp
+    either way."""
+    lo = mc.cbmin.cpu().numpy().astype(np.float64)
+    hi = mc.cbmax.cpu().numpy().astype(np.float64)
+    edge = np.stack([hi[:, 0], lo[:, 1], (lo[:, 2] + hi[:, 2]) / 2], 1)
+    d = np.float32([1.0, 1.0, 0.0]) / np.float32(np.sqrt(2.0))
+    off = (np.arange(len(edge)) % 4 * 6.25e-5)[:, None] * [1.0, -1.0, 0.0]
+    o = (edge + off / np.sqrt(2.0) - d.astype(np.float64)).astype(np.float32)
+    return (np.repeat(o, copies, 0),
+            np.repeat(d[None], len(o) * copies, 0))
+
+
+def glue_grid(n: int = 91):
+    """An n x n grid of unit-area-split quads in the plane z = 0 over
+    [-4, 4]^2 (2 n^2 triangles): at kc 4, more clusters than the cull's
+    sort holds."""
+    t = np.linspace(-4.0, 4.0, n + 1, dtype=np.float32)
+    x0, y0 = np.meshgrid(t[:-1], t[:-1], indexing="ij")
+    x1, y1 = np.meshgrid(t[1:], t[1:], indexing="ij")
+    z = np.zeros_like(x0)
+    a = np.stack([x0, y0, z], -1).reshape(-1, 3)
+    b = np.stack([x1, y0, z], -1).reshape(-1, 3)
+    c = np.stack([x1, y1, z], -1).reshape(-1, 3)
+    e = np.stack([x0, y1, z], -1).reshape(-1, 3)
+    return np.concatenate([np.stack([a, b, c], 1), np.stack([a, c, e], 1)])
+
+
+def glue_cases(dev) -> dict:
+    """The cull and resolve kernels' inputs, {name: (mc, o, d, tmin, tmax,
+    any_hit, presort)} on ``dev``: a 18,432-triangle stand-in dragon in
+    cluster tables of kc 256 (72 clusters) and kc 512 (36, with a proxy
+    set's t_bias), and a plane of 16,562 triangles at kc 4 (4,141
+    clusters, past the cull's sort), under 1,000 or 600 ``glue_rays``
+    (a padded tile), nearest and any-hit, binned and in the caller's
+    order, bounds as numbers (1e-3 and 3e38; 0 and inf) or per lane (some
+    windows negative or empty; a proxy set's tmin clamped at its t_bias,
+    as ``intersect_scene`` gives it); ``glue_edge_rays`` about the cull's
+    slack; a tile starting inside the boxes with windows ending at 0; and
+    no rays at all."""
+    from yetanotherconsolegameengine_tpu_torch.ops.mesh_clusters import (
+        build_clusters)
+    tris = transform_mesh(make_dragon(192, 48), normalize=True, scale=2.6)
+    mat = (np.arange(len(tris)) % 5).astype(np.int32)
+    grid = glue_grid()
+
+    def mesh(t, m, **kw):
+        return build_clusters(t[:, 0], t[:, 1], t[:, 2], m, **kw).to(dev)
+
+    m256 = mesh(tris, mat)
+    m512 = mesh(tris, mat, kc=512, t_bias=0.02)
+    many = mesh(grid, np.zeros(len(grid), np.int32), kc=4)
+    assert many.n_clusters > mesh_clusters.SORT_MAX
+
+    def rays(mc, n, seed):
+        o, d = glue_rays(mc.bounds.cpu().numpy(), n, seed)
+        return (torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev))
+
+    def lanes(n, seed):
+        rng = np.random.RandomState(seed)
+        lo = rng.uniform(1e-3, 0.5, n).astype(np.float32)
+        lo[::13] = lo[11] = -50.0
+        hi = rng.uniform(0.5, 12.0, n).astype(np.float32)
+        hi[1::11] = lo[1::11] * 0.5
+        hi[::19] = np.inf
+        return (torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev))
+
+    def biased(mc, o, seed):
+        lo = torch.clamp(torch.full((o.shape[0],), 1e-3, device=dev),
+                         min=mc.t_bias)
+        return lo, lanes(o.shape[0], seed)[1]
+
+    r256 = rays(m256, 1000, 1)
+    r512 = rays(m512, 1000, 2)
+    edges = tuple(torch.from_numpy(x).to(dev) for x in glue_edge_rays(m256))
+    # A first tile from inside the box with windows ending at 0: its list
+    # may take no box, though it starts in them.
+    inside = tuple(torch.from_numpy(x[:512]).to(dev)
+                   for x in glue_rays(m256.bounds.cpu().numpy(), 1024, 9))
+    zero = torch.cat([torch.zeros(256, device=dev),
+                      torch.full((256,), 5.0, device=dev)])
+    # The plane: rays from above at 49 small patches of it.
+    rng = np.random.RandomState(3)
+    go = np.concatenate([rng.uniform(-0.3, 0.3, (600, 2)),
+                         np.full((600, 1), 3.0)], 1)
+    aim = np.concatenate([rng.uniform(-3.0, 3.0, (600, 2)).round(0)
+                          + rng.uniform(-0.2, 0.2, (600, 2)),
+                          np.zeros((600, 1))], 1)
+    gd = (aim - go) / np.linalg.norm(aim - go, axis=1, keepdims=True)
+    go[::17] = 2.9e30
+    rg = tuple(torch.from_numpy(x.astype(np.float32)).to(dev)
+               for x in (go, gd))
+    return {
+        "kc256_nearest": (m256, *r256, 1e-3, INF, False, True),
+        "kc256_nearest_unsorted_lanes": (m256, *r256, *lanes(1000, 4),
+                                         False, False),
+        "kc256_any_hit_lanes": (m256, *r256, *lanes(1000, 5), True, True),
+        "kc512_bias_nearest": (m512, *r512, *biased(m512, r512[0], 6),
+                               False, True),
+        "kc512_bias_any_hit_unsorted": (m512, *r512,
+                                        *biased(m512, r512[0], 7), True,
+                                        False),
+        "kc512_inf_scalar": (m512, *r512, 0.0, float("inf"), False, True),
+        "kc256_grazing_edges": (m256, *edges, 1e-3, INF, False, False),
+        "kc256_zero_windows": (m256, *inside, 1e-3, zero, False, False),
+        "many_clusters_nearest": (many, *rg, 1e-3, INF, False, True),
+        "many_clusters_any_hit_unsorted": (many, *rg, *lanes(600, 8), True,
+                                           False),
+        "no_rays": (m256, r256[0][:0], r256[1][:0], 1e-3, INF, False,
+                    True),
+    }
+
+
+@contextlib.contextmanager
+def patched(mod, attr: str, value):
+    """``mod.attr`` set to ``value`` inside the block."""
+    real = getattr(mod, attr)
+    setattr(mod, attr, value)
+    try:
+        yield real
+    finally:
+        setattr(mod, attr, real)
+
+
+def same_bits(got, want, what: str) -> None:
+    """Tensors (or other values) equal, floats compared as int32 bits."""
+    if not isinstance(want, torch.Tensor):
+        assert got == want, what
+        return
+    g, w = got.cpu(), want.cpu()
+    assert g.dtype == w.dtype and g.shape == w.shape, what
+    if g.dtype == torch.float32:
+        g, w = g.view(torch.int32), w.view(torch.int32)
+    assert torch.equal(g, w), f"{what} differs from the torch twin"
+
+
+def glue_contract(mc, o, d, tmin, tmax, any_hit: bool,
+                  presort: bool) -> dict:
+    """One cluster sweep through the cull and resolve kernels
+    (``mesh_clusters._sweep_kernels``) against their torch twin
+    (``_sweep``), K3 run once: the twin's K3 arguments (lens, ids,
+    entry_t, the rays) bit-equal to the kernels', K3's result handed to
+    both resolves; the Hit, steps and lens bit for bit. Returns (a report,
+    K3's result)."""
+    seen = []
+
+    def k3(*args):
+        seen.append((args, real(*args)))
+        return seen[-1][1]
+
+    def replay(*args):
+        want, out = seen[0]
+        for name, g, w in zip(("lens", "ids", "entry_t", "gmat", "rays",
+                               "any_hit", "qmask"), args, want):
+            same_bits(g, w, name)
+        return out
+
+    with patched(cluster_kernel, "trace_tiles", k3) as real:
+        got, steps, lens = mesh_clusters._sweep_kernels(
+            mc, o, d, tmin, tmax, any_hit, presort)
+    with patched(cluster_kernel, "trace_tiles_plain", replay):
+        want, w_steps, w_lens = mesh_clusters._sweep(
+            mc, o, d, tmin, tmax, any_hit, presort)
+    assert len(seen) == 1
+    bit_contract(got, want)
+    same_bits(steps, w_steps, "steps")
+    same_bits(lens, w_lens, "lens")
+    return {"rays": int(o.shape[0]), "hits": int(want.hit.sum()),
+            "tiles": int(lens.shape[0]), "clusters": mc.n_clusters,
+            "listed": int(lens.sum()), "max_abs_err": 0.0}, seen[0][1]
+
+
+def glue_bound(mc, o, tmin, tmax, any_hit: bool, hits: int, listed: int):
+    """(least ms, bound by) of one sweep's cull and resolve kernels, with
+    ``listed`` entries over the tiles' lists: ``GLUE_*_BYTES`` over the
+    card's bandwidth."""
+    P = o.shape[0]
+    n_tiles = -(-P // mesh_clusters.TILE)
+    lanes = sum(isinstance(x, torch.Tensor) for x in (tmin, tmax))
+    nbytes = (P * (GLUE_RAY_BYTES + 4 * lanes)
+              + n_tiles * mesh_clusters.TILE * GLUE_LANE_BYTES
+              + listed * GLUE_ENTRY_BYTES + n_tiles * 4
+              + mc.n_clusters * GLUE_BOX_BYTES
+              + (0 if any_hit else hits * GLUE_ROW_BYTES))
+    return roofline(0, nbytes)
+
+
+def glue_launches(launches: dict) -> int:
+    """The cull and resolve kernels' launches in a run's launch counts."""
+    return sum(launches[k] for k in ("cluster_prep", "cluster_cull",
+                                     "cluster_resolve"))
+
+
+def glue_phase(dev, card, frame, sets, cfg) -> dict:
+    """Phase 7b: the cull and resolve kernels against their torch twin
+    (``glue_contract``, bit for bit) on every cluster sweep of the
+    dragon's frame (``frame(cfg)``: fine primary, LOD bounce, the
+    any-hit shadow sweeps) and on its primary sweep of the full set,
+    then each timed without K3 (its result replayed): the kernels' and
+    the binning sort's device time (torch.profiler) and CUDA-event time,
+    the twin's CUDA-event time, the least time (``glue_bound``) and the
+    share; then ``glue_cases`` bit for bit."""
+    def record(c):
+        calls = []
+        real = mesh_clusters.intersect_clusters
+
+        def spy(mc, *args, **kw):
+            calls.append((mc, tuple(x.clone() if isinstance(x, torch.Tensor)
+                                    else x for x in args), dict(kw)))
+            return real(mc, *args, **kw)
+        with patched(mesh_clusters, "intersect_clusters", spy):
+            frame(c)
+        return calls
+
+    calls = record(cfg)
+    calls += record(dataclasses.replace(cfg, primary_mesh_lod=False))[:1]
+    res = []
+    for i, (mc, (o, d, lo, hi), kw) in enumerate(calls):
+        any_hit, presort = kw.get("any_hit", False), kw.get("presort", True)
+        err, out = glue_contract(mc, o, d, lo, hi, any_hit, bool(presort))
+
+        def kernels_only():
+            with patched(cluster_kernel, "trace_tiles", lambda *a: out):
+                mesh_clusters._sweep_kernels(mc, o, d, lo, hi, any_hit,
+                                             bool(presort))
+
+        def twin_only():
+            with patched(cluster_kernel, "trace_tiles_plain",
+                         lambda *a: out):
+                mesh_clusters._sweep(mc, o, d, lo, hi, any_hit,
+                                     bool(presort))
+        ms, ops = device_ms(kernels_only, 20)
+        least, by = glue_bound(mc, o, lo, hi, any_hit, err["hits"],
+                               err["listed"])
+        res.append(dict(
+            sweep=i, set=sets[id(mc.gmat)], kc=mc.kc, any_hit=any_hit,
+            presort=bool(presort), **err, ms=ms, device_ops=ops,
+            event_ms=cuda_ms(kernels_only, 20),
+            plain_ms=cuda_ms(twin_only, 5), bound_ms=least, bound_by=by,
+            share=least / ms))
+    assert [r["set"] for r in res][-1] == "full"
+    cases = {name: glue_contract(*case)[0]
+             for name, case in glue_cases(dev).items()}
+    frame_res = res[:-1]
+    tot = {k: sum(r[k] for r in frame_res)
+           for k in ("ms", "event_ms", "plain_ms", "bound_ms")}
+    print(f"phase 7b {card} cull and resolve kernels vs their torch twin "
+          f"on the {len(frame_res)} cluster sweeps of the dragon frame and "
+          f"its full-set primary sweep, bit for bit; {len(cases)} cases "
+          f"bit for bit; the frame's sweeps (device time | CUDA events | "
+          f"twin by events) {tot['ms']:.5f} | {tot['event_ms']:.5f} | "
+          f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms; per "
+          f"sweep {json.dumps(res)}", flush=True)
+    return {"sweeps": res, "cases": cases, **tot}
+
+
 def frame_times(first: int, n: int):
     """Times of frames first..first+n-1 of a dynamic scene at 30 fps."""
     return [(first + k) / 30.0 for k in range(n)]
@@ -1281,7 +1601,8 @@ def island_phases(dev, card):
             orbit = {}
             for w, h in ((FB_W, FB_H), (DRAGON_W, DRAGON_H)):
                 r = RaytraceRenderer(scene, w, h, device=dev)
-                run = timed_frames(r, ORBIT_POSES, ("clusters", "post"),
+                run = timed_frames(r, ORBIT_POSES,
+                                   ("clusters", "cluster_cull", "post"),
                                    warmup=4, poses=poses)
                 idle = idle_share(r, poses[:8])
                 orbit[f"{w}x{h}"] = run
@@ -1800,8 +2121,8 @@ def sharding_phases(dev, card, packs, post_in, dragon, cfg) -> dict:
             **{k: unsharded(b(), 48, 28, dev) for k, b in small.items()}}
     need = {"cornell": ("trace", "post"), "cornell_ss2": ("trace", "post"),
             "cornell88": ("trace", "post"),
-            "dragon": ("clusters", "post"),
-            "cluster_forced": ("clusters", "post"),
+            "dragon": ("clusters", "cluster_cull", "post"),
+            "cluster_forced": ("clusters", "cluster_cull", "post"),
             "voxel_test": ("trace", "post"),
             "voxel_test_dda": ("post", "dda"), "teapot": ("post", "bvh")}
     contract, launches = {}, {}
@@ -2323,6 +2644,9 @@ def main() -> int:
           f"frame {TRACE_FRAME} (scene build {build_s:.2f} s): "
           f"{json.dumps(sweep_err)}", flush=True)
 
+    # ---- 7b. the cull and resolve kernels vs their torch twin ------------
+    glue = glue_phase(dev, card, dragon_frame, sets, cfg)
+
     # ---- 8. cluster goldens on the card ----------------------------------
     cluster_golden_err = {}
     before = kernels.LAUNCHES["clusters"]
@@ -2343,7 +2667,8 @@ def main() -> int:
     print(f"phase 9a {card} dragon kernel vs plain renderer at "
           f"{DRAGON_W}x{DRAGON_H}, 4 frames: {json.dumps(dragon_err)}",
           flush=True)
-    d_run = timed_frames(dk, DRAGON_FRAMES, ("clusters", "post"))
+    d_run = timed_frames(dk, DRAGON_FRAMES,
+                         ("clusters", "cluster_cull", "post"))
     d_launches = d_run["launches"]
     print(f"phase 9b {card} dragon {DRAGON_W}x{DRAGON_H} ss=1 render_many("
           f"{DRAGON_FRAMES}): {d_run['ms']:.4f} ms/frame (device events), "
@@ -2753,6 +3078,21 @@ def main() -> int:
                               **{k: v["clusters"]
                                  for k, v in shell_launches.items()},
                               **sharded("clusters")}},
+        {"name": "cluster_glue", "route": "cuda",
+         "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
+                   "cluster_glue.cu",
+         "replaces": None, "launches": glue_launches(d_launches),
+         "max_abs_err": 0.0,
+         **{f: glue[f] for f in ("ms", "event_ms", "plain_ms", "bound_ms")},
+         "share": glue["bound_ms"] / glue["ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "launches_by_path": {"dragon": glue_launches(d_launches),
+                              **{f"island_{k}":
+                                 glue_launches(v["launches"])
+                                 for k, v in orbit.items()}},
+         "full_set": {f: glue["sweeps"][-1][f] for f in (
+             "rays", "clusters", "ms", "event_ms", "plain_ms", "bound_ms",
+             "share")}},
         {"name": "bvh", "route": "cuda",
          "source": "yetanotherconsolegameengine_tpu_torch/ops/csrc/"
                    "bvh_kernel.cu",

@@ -187,7 +187,7 @@ def test_cluster_sweep_spans_and_counters(cell, scenes, monkeypatch):
 def test_the_cell_loads_by_name(cell):
     """Its configuration, limits (the museum's, but its own flips and
     exposure limits) and traffic; ``lag_p95_ms`` and ``setup_s`` end to
-    end; the five cluster metrics per layer; the default
+    end; the six cluster metrics per layer; the default
     ``RenderConfig``."""
     assert (cell.config["scene"], cell.config["fb_w"], cell.config["fb_h"],
             cell.config["ss"]) == ("dragon", 240, 135, 1)
@@ -202,5 +202,5 @@ def test_the_cell_loads_by_name(cell):
     assert {m["name"] for m in cell.end_to_end} == {"lag_p95_ms", "setup_s"}
     assert {m["name"] for m in cell.per_layer} == {
         "k3.device_ms", "k3.roofline_share", "clusters.torch_device_ms",
-        "clusters.host_ms", "clusters.sweeps"}
+        "clusters.host_ms", "clusters.sweeps", "clusters.kernel_share"}
     assert cell.config["render_config"] == dataclasses.asdict(RenderConfig())

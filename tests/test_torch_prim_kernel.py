@@ -77,8 +77,8 @@ def host_kernel(tmp_path_factory):
     (out / "prim_host.cpp").write_text(src)
     so = out / "libprim_host.so"
     subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-fPIC",
-                    "-shared", f"-I{out}", "-o", str(so),
-                    str(out / "prim_host.cpp")], check=True,
+                    "-shared", f"-I{out}", f"-I{kernels.CSRC}", "-o",
+                    str(so), str(out / "prim_host.cpp")], check=True,
                    capture_output=True)
     fn = ctypes.CDLL(str(so)).yacge_prim_launch
     fn.argtypes, fn.restype = kernels._SIGNATURES["yacge_prim_launch"]

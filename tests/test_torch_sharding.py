@@ -87,7 +87,9 @@ def test_eight_ranks_match_the_unsharded_frame():
                                           got["fg_ansi"])
         assert all(r["launches"][k] == {"trace": 0, "post": 0,
                                         "clusters": 0, "bvh": 0, "dda": 0,
-                                        "prim": 0}
+                                        "prim": 0, "cluster_prep": 0,
+                                        "cluster_cull": 0,
+                                        "cluster_resolve": 0}
                    for r in res)
 
 

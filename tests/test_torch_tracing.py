@@ -104,7 +104,8 @@ def test_reset_clears_the_registry_and_zeroes_launches():
     kernels.reset_launches()
     assert kernels.LAUNCHES is launches
     assert launches == {"trace": 0, "post": 0, "clusters": 0, "bvh": 0,
-                        "dda": 0, "prim": 0}
+                        "dda": 0, "prim": 0, "cluster_prep": 0,
+                        "cluster_cull": 0, "cluster_resolve": 0}
     assert not mesh_bvh.STATS and not dda.STATS
     assert not profiling.SPANS and not profiling.COUNTS
     assert not profiling.SYNCS and not profiling.SYNC_NS
@@ -298,6 +299,7 @@ READERS = {   # metric: (what it reads, per)
     "clusters.host_ms": ("clusters.sweep", "frames"),
     "clusters.sweeps": ("counter", "frames"),
     "wavefront.prim_kernel_share": ("share", None),
+    "clusters.kernel_share": ("share", None),
 }
 
 
@@ -314,6 +316,8 @@ def test_metric_reader_reads_the_registry(name, monkeypatch):
     profiling.COUNTS["clusters.sweeps"] = 30
     profiling.COUNTS["wavefront.prim_kernel_sweeps"] = 30
     profiling.COUNTS["wavefront.prim_plain_sweeps"] = 10
+    profiling.COUNTS["clusters.kernel_sweeps"] = 30
+    profiling.COUNTS["clusters.plain_sweeps"] = 10
     profiling.SYNCS.update({"entity.copy_wait": 8, "trace.round_live": 16})
     profiling.SYNC_NS.update({"entity.copy_wait": 2_000_000,
                               "trace.round_live": 6_000_000})

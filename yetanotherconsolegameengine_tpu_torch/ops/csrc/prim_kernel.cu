@@ -39,6 +39,8 @@
 
 #include <cuda_runtime.h>
 
+#include "torch_order.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -48,7 +50,6 @@ constexpr int kCols = 39;
 // ops/intersect.py's literals as torch rounds them to float32: from the
 // Python float (a double), once.
 constexpr float kInf = static_cast<float>(3.0e38);
-constexpr float kEps12 = static_cast<float>(1e-12);
 constexpr float kEps8 = static_cast<float>(1e-8);
 constexpr float kEps6 = static_cast<float>(1e-6);
 constexpr float kTiny = static_cast<float>(1e-20);
@@ -73,37 +74,9 @@ struct Tables {
   int rows[kTables];        // each table's padded row count
 };
 
-// torch.minimum / torch.maximum (NaN if either is, a first), clamp(min=)
-// (NaN kept), abs.
-__device__ __forceinline__ float tmin2(float a, float b) {
-  return a != a ? a : (b != b ? b : fminf(a, b));
-}
-__device__ __forceinline__ float tmax2(float a, float b) {
-  return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-__device__ __forceinline__ float clamp_lo(float v, float lo) {
-  return v != v ? v : fmaxf(v, lo);
-}
-// amax / amin's fold: the accumulator kept where it is NaN or strictly
-// beyond the next value.
-__device__ __forceinline__ float amax_step(float acc, float x) {
-  return (acc != acc || acc > x) ? acc : x;
-}
-__device__ __forceinline__ float amin_step(float acc, float x) {
-  return (acc != acc || acc < x) ? acc : x;
-}
-// _safe_div(num, den) with eps 1e-12.
-__device__ __forceinline__ float safe_div(float num, float den) {
-  const float s = fabsf(den) < kEps12 ? (den < 0.0f ? -kEps12 : kEps12)
-                                      : den;
-  return num / s;
-}
 // x[a] of a 3-vector held in registers, a in 0..2.
 __device__ __forceinline__ float pick(const float* x, int a) {
   return a == 0 ? x[0] : (a == 1 ? x[1] : x[2]);
-}
-__device__ __forceinline__ float dot3(const float* a, const float* b) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
 
 struct Ray {

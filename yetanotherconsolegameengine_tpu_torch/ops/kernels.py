@@ -3,7 +3,8 @@
 At first use ``library()`` compiles every ``csrc/*.cu`` (one ``nvcc``
 per source, all at once), links them into one shared library with a plain
 C interface under ``build/torch_kernels/`` at the root of the checkout,
-named by a hash of the sources and flags, and loads it with ``ctypes``.
+named by a hash of the sources, the ``csrc/*.cuh`` headers they include
+and the flags, and loads it with ``ctypes``.
 Nothing is built at import time, so the CPU tests import this module on a
 machine with no ``nvcc``. A failed build raises with nvcc's stderr; a
 launch that returns a CUDA error raises with its message. Nothing here
@@ -35,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # kernel, so a run can show the main path went through the kernels.
 LAUNCHES = profiling.register(
     "kernels.launches",
-    {"trace": 0, "post": 0, "clusters": 0, "bvh": 0, "dda": 0, "prim": 0})
+    {"trace": 0, "post": 0, "clusters": 0, "bvh": 0, "dda": 0, "prim": 0,
+     "cluster_prep": 0, "cluster_cull": 0, "cluster_resolve": 0})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,6 +63,12 @@ _SIGNATURES = {
                           _P, _P, _P, _P, _P], _I),
     "yacge_prim_launch": ([_P, _P, _P, _P, _P, _F, _P, _F, _I, _P, _P, _P,
                            _P, _P, _P, _P], _I),
+    "yacge_cluster_prep_launch": ([_P, _P, _P, _F, _P, _F, _P, _I, _I, _I,
+                                   _P, _P, _P], _I),
+    "yacge_cluster_cull_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                                   _P, _P, _P], _I),
+    "yacge_cluster_resolve_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _P, _P, _P, _P, _P, _P, _P], _I),
 }
 
 
@@ -98,7 +106,7 @@ def sources() -> list:
 
 def _source_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

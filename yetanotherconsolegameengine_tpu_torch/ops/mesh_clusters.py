@@ -9,16 +9,23 @@ Port of ``yetanotherconsolegameengine_tpu/ops/mesh_clusters.py``:
      block: rows U x/y/z/affine, V x/y/z/affine, W x/y/z/affine. The JAX
      package keeps each field group in 8 rows (4 zero rows of TPU sublane
      padding, (C, 24, kc)); ``gmat_from_jax`` drops them.
-  2. CULL (torch): rays that cannot touch the mesh's bounds within their
-     [tmin, tmax] drop out, the rest are optionally binned (stable sort by
-     direction octant and origin/direction Morton codes), cut into tiles of
-     256 rays and 64-ray sub-bundles, and every sub-bundle frustum is
-     tested against every cluster AABB by interval arithmetic. The result
-     is, per tile, a near-to-far list of candidate clusters.
+  2. CULL (on the card the prep and cull kernels of csrc/cluster_glue.cu
+     around a torch.sort; torch in the twin): rays that cannot touch the
+     mesh's bounds within their [tmin, tmax] drop out, the rest are
+     optionally binned (stable sort by direction octant and
+     origin/direction Morton codes), cut into tiles of 256 rays and 64-ray
+     sub-bundles, and every sub-bundle frustum is tested against every
+     cluster AABB by interval arithmetic. The result is, per tile, a
+     near-to-far list of candidate clusters.
   3. KERNEL K3 (ops/cluster_kernel.py): per tile, the nearest hit over the
      list's triangles with an exact early exit.
-  4. RESOLVE (torch): one row gather per ray fetches the winning triangle
-     and re-runs Möller–Trumbore for t/u/v, as the JAX package does.
+  4. RESOLVE (on the card the resolve kernel; torch in the twin): one row
+     gather per ray fetches the winning triangle and re-runs
+     Möller–Trumbore for t/u/v, as the JAX package does.
+
+The torch steps 2 and 4 (``_sweep``) are the plain twin, for CPU tensors
+and ``impl="plain"``; the kernels (``_sweep_kernels``) equal it bit for
+bit, so K3 sees the same lists.
 
 Every lane count inside ``intersect_clusters`` is static and nothing in it
 waits on the host: list lengths stay on the device, where the kernel reads
@@ -35,12 +42,16 @@ import torch
 from ..devices import resolve_impl
 from ..scene._tensors import Tensors
 from ..utils import profiling
-from . import cluster_kernel
-from .intersect import INF, Hit, _safe_div, cross3, dot3
+from . import cluster_kernel, kernels
+from .intersect import INF, Hit, _bound, _safe_div, cross3, dot3
 
 KC = 256        # triangles per cluster of a full mesh (proxy sets: 512)
 TILE = cluster_kernel.TILE
 SUB_W = 64      # rays per cull sub-bundle (frustum granularity)
+# The cull kernel orders a tile's list in shared memory for up to this many
+# clusters (kSortMax in csrc/cluster_glue.cu); a larger set leaves the
+# order to torch.sort, which costs a sweep more launches (PERF.md § 6).
+SORT_MAX = 4096
 # The JAX kernel orders candidates by t with its low log2(VISIT_BATCH * kc)
 # mantissa bits replaced by the candidate's index, so hits within ~1e-4
 # relative t tie there. The winner key clears the same bits of t (ties then
@@ -288,28 +299,34 @@ def intersect_clusters(mc: MeshClusters, o, d, tmin, tmax,
     ``any_hit=True`` (only where every mesh material is opaque) returns a
     blocking hit per ray instead of the nearest, and skips the resolve.
     ``presort=False`` tiles the caller's lane order. ``impl`` "kernel"
-    sweeps with K3 (``cluster_kernel.trace_tiles``), "plain" with its
-    plain version; None picks from the rays' device and "kernel" off CUDA
-    raises. ``stats=True`` also returns (entries tested, list length) per
-    tile.
+    sweeps with the cull and resolve kernels around K3
+    (``_sweep_kernels``), "plain" with the torch cull and resolve around
+    K3's plain version (``_sweep``); None picks from the rays' device and
+    "kernel" off CUDA raises. ``stats=True`` also returns (entries tested,
+    list length) per tile.
 
-    Counts ``clusters.sweeps`` (one a call) and ``clusters.rays`` (P),
+    Counts ``clusters.sweeps`` (one a call), ``clusters.rays`` (P) and
+    ``clusters.kernel_sweeps`` or ``clusters.plain_sweeps`` by the path,
     and opens the span ``clusters.sweep`` around the whole, with
     ``clusters.cull`` (prefilter, binning sort, tile cull) and
     ``clusters.resolve`` (unsort, row gather, recompute) inside it."""
+    impl = resolve_impl(impl, o.device)
     profiling.count("clusters.sweeps")
     profiling.count("clusters.rays", o.shape[0])
+    profiling.count(f"clusters.{impl}_sweeps")
+    sweep = _sweep_kernels if impl == "kernel" else _sweep
     with profiling.span("clusters.sweep"):
-        res, steps, lens = _sweep(mc, o, d, tmin, tmax, any_hit, presort,
-                                  resolve_impl(impl, o.device))
+        res, steps, lens = sweep(mc, o, d, tmin, tmax, any_hit,
+                                 bool(presort))
     if stats:
         return res, (steps, lens)
     return res
 
 
 def _sweep(mc: MeshClusters, o, d, tmin, tmax, any_hit: bool,
-           presort: bool, impl: str):
-    """``intersect_clusters`` under its span: (hit, steps, lens)."""
+           presort: bool):
+    """The plain twin of ``intersect_clusters`` under its span: (hit,
+    steps, lens)."""
     P = o.shape[0]
     dev = o.device
     T = TILE
@@ -358,10 +375,8 @@ def _sweep(mc: MeshClusters, o, d, tmin, tmax, any_hit: bool,
             mc.cbmin, mc.cbmax)
     tinit = torch.where(act_s, torch.clamp(thi_s, max=3.0e37), -float("inf"))
     rays = torch.cat([o_s, d_s, tlo_s[:, None], tinit[:, None]], 1)
-    sweep = (cluster_kernel.trace_tiles if impl == "kernel"
-             else cluster_kernel.trace_tiles_plain)
-    t_w, win, steps = sweep(lens, ids, entry_t, mc.gmat, rays, any_hit,
-                            tie_mask(mc.kc))
+    t_w, win, steps = cluster_kernel.trace_tiles_plain(
+        lens, ids, entry_t, mc.gmat, rays, any_hit, tie_mask(mc.kc))
 
     with profiling.span("clusters.resolve"):
         # Unsort the two winner words with one permutation scatter.
@@ -398,3 +413,80 @@ def _sweep(mc: MeshClusters, o, d, tmin, tmax, any_hit: bool,
             res = Hit(t=torch.where(hit, t, INF), n=n, u=u, v=v,
                       mat=row[:, 12].to(torch.int32), hit=hit)
     return res, steps, lens
+
+
+# ---------------------------------------------------------------------------
+# The card's path: csrc/cluster_glue.cu around the binning sort and K3
+# ---------------------------------------------------------------------------
+
+def _sweep_kernels(mc: MeshClusters, o, d, tmin, tmax, any_hit: bool,
+                   presort: bool):
+    """``_sweep``'s result, bit for bit, from the prep, cull and resolve
+    kernels around ``torch.sort`` and K3 (``cluster_kernel.trace_tiles``):
+    o/d (P, 3) f32 and the tables on one CUDA device, tmin/tmax a number
+    (a kernel argument) or a tensor of P lanes. Nothing here waits on the
+    host; an empty batch launches none of the three."""
+    P = o.shape[0]
+    o, d = o.contiguous(), d.contiguous()
+    kernels.require(o, "o", torch.float32, (P, 3))
+    kernels.require(d, "d", torch.float32, (P, 3))
+    C = mc.n_clusters
+    kernels.require(mc.bounds, "bounds", torch.float32, (2, 3))
+    kernels.require(mc.cbmin, "cbmin", torch.float32, (C, 3))
+    kernels.require(mc.cbmax, "cbmax", torch.float32, (C, 3))
+    kernels.require(mc.tri_rows, "tri_rows", torch.float32, (C * mc.kc, 16))
+    dev = o.device
+    Pp = (P + TILE - 1) // TILE * TILE
+    n_tiles = Pp // TILE
+    lib = kernels.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with profiling.span("clusters.cull"):
+        lo, lo_s = _bound(tmin, o)
+        hi, hi_s = _bound(tmax, o)
+        rows = torch.empty((Pp, 8), device=dev)
+        key = torch.empty(Pp, dtype=torch.int32, device=dev)
+        if P:
+            kernels.check(lib.yacge_cluster_prep_launch(
+                o.data_ptr(), d.data_ptr(), _ptr(lo), lo_s, _ptr(hi), hi_s,
+                mc.bounds.data_ptr(), P, Pp, int(presort), rows.data_ptr(),
+                key.data_ptr(), stream), "cluster prep kernel")
+            kernels.LAUNCHES["cluster_prep"] += 1
+        sidx = torch.sort(key, stable=True).indices if presort else None
+        rays = torch.empty((Pp, 8), device=dev)
+        ids = torch.empty((n_tiles, C), dtype=torch.int32, device=dev)
+        entry_t = torch.empty((n_tiles, C), device=dev)
+        lens = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+        pairs = 1 << (C - 1).bit_length() if 0 < C <= SORT_MAX else 0
+        if P:
+            kernels.check(lib.yacge_cluster_cull_launch(
+                rows.data_ptr(), key.data_ptr(), _ptr(sidx),
+                mc.cbmin.data_ptr(), mc.cbmax.data_ptr(), n_tiles, C, pairs,
+                rays.data_ptr(), ids.data_ptr(), entry_t.data_ptr(),
+                lens.data_ptr(), stream), "cluster cull kernel")
+            kernels.LAUNCHES["cluster_cull"] += 1
+        if not pairs:
+            entry_t, order = torch.sort(entry_t, dim=1, stable=True)
+            ids = order.to(torch.int32)
+    t_w, win, steps = cluster_kernel.trace_tiles(
+        lens, ids, entry_t, mc.gmat, rays, any_hit, tie_mask(mc.kc))
+
+    with profiling.span("clusters.resolve"):
+        t = torch.empty(P, device=dev)
+        n = torch.empty((P, 3), device=dev)
+        u = torch.empty(P, device=dev)
+        v = torch.empty(P, device=dev)
+        mat = torch.empty(P, dtype=torch.int32, device=dev)
+        hit = torch.empty(P, dtype=torch.bool, device=dev)
+        if P:
+            kernels.check(lib.yacge_cluster_resolve_launch(
+                t_w.data_ptr(), win.data_ptr(), _ptr(sidx), o.data_ptr(),
+                d.data_ptr(), mc.tri_rows.data_ptr(), P, Pp, int(any_hit),
+                t.data_ptr(), n.data_ptr(), u.data_ptr(), v.data_ptr(),
+                mat.data_ptr(), hit.data_ptr(), stream),
+                "cluster resolve kernel")
+            kernels.LAUNCHES["cluster_resolve"] += 1
+    return Hit(t=t, n=n, u=u, v=v, mat=mat, hit=hit), steps, lens
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
